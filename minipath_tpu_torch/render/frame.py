@@ -1,0 +1,178 @@
+"""Whole-frame parity renderer on the traversal kernel.
+
+Port of ``minipath_tpu/render/frame.py::render_frame_pallas`` together with
+the ray generation it calls in ``minipath_tpu/parallel/mesh.py``
+(``gen_rays9_blocks``, ``gen_frame_rays9``, ``unpack_frame``). One chunk of
+samples at a time: camera rays for every pixel block, one trace, parity
+shading (grayscale ``|d.n|``, alpha on hit), and a sum on the device.
+
+Packets are multi-sample: a ``px_block`` pixel tile repeated for each sample
+of the chunk, sample-major. The kernel traces one ray per thread, so the
+packet shape fixes only the memory layout and the order of the samples.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from minipath_tpu_torch.camera import CameraSampler, sample_rays
+from minipath_tpu_torch.render.kernels import KernelHits, KernelScene, rays_to_rays9, trace_packets
+
+# Dimension-salt base for the camera's film/lens strata, clear of the
+# per-bounce salts a path tracer uses (8 per bounce).
+CAMERA_SALT = 1 << 12
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def gen_rays9_blocks(
+    sampler: CameraSampler,
+    generator: torch.Generator | None,
+    block_start: int,
+    *,
+    block_count: int,
+    wc: int,
+    px_block=(8, 8),
+    samples: int = 4,
+    strat_spp: int | None = None,
+    strat_offset: int = 0,
+    strat_seed: int = 0,
+) -> torch.Tensor:
+    """Multi-sample packet rays ``(block_count, 9, samples*bh*bw)`` for the
+    pixel blocks ``block_start ..`` in the frame's row-major block order
+    (``wc`` blocks per row).
+
+    ``strat_spp`` enables per-pixel stratified film/lens sampling over the
+    pixel's TOTAL spp (negative: Owen-scrambled Sobol); ``strat_offset`` is
+    this chunk's first sample index; ``strat_seed`` re-randomizes the
+    stratum pairings per render and is the same for every chunk of one
+    render. Pixel ids are ``y * (wc * bw) + x``, XORed with the seed.
+    """
+    dev = sampler.device
+    bh, bw = px_block
+    bp = bh * bw
+    b_idx = block_start + torch.arange(block_count, device=dev)[:, None]
+    p_idx = torch.arange(bp, device=dev)[None, :]
+    by, bx = b_idx // wc, b_idx % wc
+    py, px = p_idx // bw, p_idx % bw
+    gx = (bx * bw + px).expand(block_count, bp)
+    gy = (by * bh + py).expand(block_count, bp)
+    pix = torch.stack([gx, gy], dim=-1).to(torch.float32)  # (block_count, bp, 2)
+    pix = pix.repeat(1, samples, 1)  # sample-major (block_count, P, 2)
+    strat = None
+    if strat_spp is not None:
+        P = samples * bp
+        s_idx = strat_offset + torch.arange(P, device=dev) // bp
+        pid = (gy * (wc * bw) + gx).repeat(1, samples) ^ strat_seed
+        strat = (s_idx.expand(block_count, P), pid, strat_spp, CAMERA_SALT)
+    rays = sample_rays(sampler, pix, generator, strat=strat)
+    return rays_to_rays9(rays)
+
+
+def gen_frame_rays9(
+    sampler: CameraSampler,
+    generator: torch.Generator | None,
+    *,
+    width: int,
+    height: int,
+    px_block=(8, 8),
+    samples: int = 4,
+    strat_spp: int | None = None,
+    strat_offset: int = 0,
+    strat_seed: int = 0,
+):
+    """The whole frame's multi-sample packet rays: ``(rays9,
+    (hc, wc))`` with ``hc * wc`` pixel blocks, the frame padded up to whole
+    blocks. Arguments as in :func:`gen_rays9_blocks`."""
+    bh, bw = px_block
+    hc, wc = _round_up(height, bh) // bh, _round_up(width, bw) // bw
+    rays9 = gen_rays9_blocks(
+        sampler,
+        generator,
+        0,
+        block_count=hc * wc,
+        wc=wc,
+        px_block=px_block,
+        samples=samples,
+        strat_spp=strat_spp,
+        strat_offset=strat_offset,
+        strat_seed=strat_seed,
+    )
+    return rays9, (hc, wc)
+
+
+def unpack_frame(rgba: torch.Tensor, width: int, height: int, packet_counts, packet_shape) -> torch.Tensor:
+    """Per-block pixel values ``(n_blocks, bh*bw, C)`` -> cropped
+    ``(height, width, C)``."""
+    ph, pw = packet_shape
+    hc, wc = packet_counts
+    c = rgba.shape[-1]
+    v = rgba[: hc * wc].reshape(hc, wc, ph, pw, c)
+    v = v.permute(0, 2, 1, 3, 4).reshape(hc * ph, wc * pw, c)
+    return v[:height, :width]
+
+
+def shade_parity_sum(rays9: torch.Tensor, kh: KernelHits, samples: int) -> torch.Tensor:
+    """Parity shading from kernel outputs (``worker.rs:59-64``: grayscale
+    ``|d.n|`` with alpha on hit, transparent miss). Returns ``(B, bp, 4)``
+    RGBA sums over the sample-major packet dimension."""
+    direction = rays9[:, 3:6, :].transpose(1, 2)  # (B, P, 3)
+    dot = torch.abs(torch.sum(direction * kh.normal, dim=-1))
+    hit = (kh.tri >= 0).to(torch.float32)
+    shaded = dot * hit
+    rgba = torch.stack([shaded, shaded, shaded, hit], dim=-1)  # (B, P, 4)
+    B, P, _ = rgba.shape
+    return rgba.reshape(B, samples, P // samples, 4).sum(dim=1)
+
+
+def render_frame(
+    scene: KernelScene,
+    sampler: CameraSampler,
+    generator: torch.Generator | None,
+    *,
+    width: int,
+    height: int,
+    spp: int,
+    stack_size: int,
+    px_block=(16, 16),
+    samples_per_packet: int = 16,
+    stratify: bool = True,
+    sobol: bool = False,
+    strat_seed: int = 0,
+) -> torch.Tensor:
+    """Full-frame mean image ``(H, W, 4)`` float32 in [0, 1] on the
+    scene's device.
+
+    ``stratify`` draws the film jitter and lens sample from per-pixel
+    jittered strata spanning the full ``spp``; ``sobol`` upgrades them to
+    per-pixel Owen-scrambled Sobol points, and every sample is then a pure
+    function of (pixel, sample index, ``strat_seed``): no uniform is drawn
+    from ``generator``, which may be None.
+    """
+    if scene.device != sampler.device:
+        raise ValueError(f"scene on {scene.device}, sampler on {sampler.device}")
+    strat_spp = (-spp if sobol else spp) if stratify else None
+
+    acc = None
+    done = 0
+    while done < spp:
+        n = min(samples_per_packet, spp - done)
+        rays9, (hc, wc) = gen_frame_rays9(
+            sampler,
+            generator,
+            width=width,
+            height=height,
+            px_block=px_block,
+            samples=n,
+            strat_spp=strat_spp,
+            strat_offset=done,
+            strat_seed=strat_seed,
+        )
+        kh = trace_packets(scene, rays9, stack_size=stack_size)
+        part = shade_parity_sum(rays9, kh, n)
+        acc = part if acc is None else acc + part
+        done += n
+    img = unpack_frame(acc, width, height, (hc, wc), px_block)
+    return img / spp

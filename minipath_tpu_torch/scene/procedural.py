@@ -1,0 +1,168 @@
+"""Procedural mesh generation for tests and benchmarks.
+
+The reference ships binary assets (teapot.obj, the Sponza submodule — which
+is not even checked out, ``minipath/.gitmodules:1-3``); this repo
+generates geometry instead. :func:`make_atrium` builds a Sponza-stand-in:
+a colonnaded atrium with ~any requested triangle budget, BVH-heavy and
+interior-lit like the Sponza benchmark scene in BASELINE.json.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from minipath_tpu_torch.scene.obj_loader import MeshData
+
+
+def _mesh_from_soup(verts: np.ndarray, faces: np.ndarray, normals=None) -> MeshData:
+    """Build MeshData from positions + faces; smooth normals optional."""
+    verts = np.asarray(verts, np.float32).reshape(-1, 3)
+    faces = np.asarray(faces, np.int32).reshape(-1, 3)
+    if normals is None:
+        normals = np.zeros_like(verts)  # zero normal => flat shading
+    return MeshData(
+        triangles=faces,
+        positions=verts,
+        normals=np.asarray(normals, np.float32).reshape(-1, 3),
+        texcoords=np.zeros_like(verts),
+    )
+
+
+def make_quad(size: float = 1.0, z: float = 0.0) -> MeshData:
+    s = size / 2
+    verts = [(-s, -s, z), (s, -s, z), (s, s, z), (-s, s, z)]
+    faces = [(0, 1, 2), (0, 2, 3)]
+    return _mesh_from_soup(verts, faces)
+
+
+def make_cube(size: float = 1.0, center=(0.0, 0.0, 0.0)) -> MeshData:
+    """Axis-aligned cube, 12 triangles, flat shaded (like the reference's
+    cube.obj — which the reference fails to load since it is quads)."""
+    s = size / 2
+    c = np.asarray(center, np.float32)
+    corners = np.array(
+        [
+            [-s, -s, -s], [s, -s, -s], [s, s, -s], [-s, s, -s],
+            [-s, -s, s], [s, -s, s], [s, s, s], [-s, s, s],
+        ],
+        np.float32,
+    ) + c
+    quads = [
+        (0, 1, 2, 3), (4, 5, 6, 7), (0, 4, 7, 3),
+        (1, 5, 6, 2), (3, 2, 6, 7), (0, 1, 5, 4),
+    ]
+    faces = []
+    for (a, b, cc, d) in quads:
+        faces += [(a, b, cc), (a, cc, d)]
+    return _mesh_from_soup(corners, faces)
+
+
+def make_uv_sphere(radius: float = 1.0, center=(0.0, 0.0, 0.0), rings: int = 16, segments: int = 32) -> MeshData:
+    """UV sphere with smooth vertex normals."""
+    center = np.asarray(center, np.float32)
+    verts, normals = [], []
+    for i in range(rings + 1):
+        theta = np.pi * i / rings
+        for j in range(segments):
+            phi = 2 * np.pi * j / segments
+            n = np.array(
+                [np.sin(theta) * np.cos(phi), np.cos(theta), np.sin(theta) * np.sin(phi)],
+                np.float32,
+            )
+            verts.append(center + radius * n)
+            normals.append(n)
+    faces = []
+    for i in range(rings):
+        for j in range(segments):
+            a = i * segments + j
+            b = i * segments + (j + 1) % segments
+            c = (i + 1) * segments + j
+            d = (i + 1) * segments + (j + 1) % segments
+            if i > 0:
+                faces.append((a, b, c))
+            if i < rings - 1:
+                faces.append((b, d, c))
+    return _mesh_from_soup(np.array(verts), faces, normals=np.array(normals))
+
+
+def make_random_triangles(n: int, seed: int = 0, extent: float = 10.0, tri_size: float = 0.5) -> MeshData:
+    """Random triangle soup — stress geometry for oracle tests."""
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(-extent, extent, (n, 1, 3))
+    offsets = rng.normal(0.0, tri_size, (n, 3, 3))
+    verts = (centers + offsets).astype(np.float32).reshape(-1, 3)
+    faces = np.arange(3 * n, dtype=np.int32).reshape(-1, 3)
+    return _mesh_from_soup(verts, faces)
+
+
+def merge_meshes(meshes) -> MeshData:
+    tris, pos, nor, tex = [], [], [], []
+    offset = 0
+    for m in meshes:
+        tris.append(m.triangles + offset)
+        pos.append(m.positions)
+        nor.append(m.normals)
+        tex.append(m.texcoords)
+        offset += m.vertex_count
+    return MeshData(
+        triangles=np.concatenate(tris),
+        positions=np.concatenate(pos),
+        normals=np.concatenate(nor),
+        texcoords=np.concatenate(tex),
+    )
+
+
+def transform_mesh(mesh: MeshData, scale=1.0, rotate_y: float = 0.0, translate=(0, 0, 0)) -> MeshData:
+    c, s = np.cos(rotate_y), np.sin(rotate_y)
+    rot = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32)
+    pos = (mesh.positions * scale) @ rot.T + np.asarray(translate, np.float32)
+    nor = mesh.normals @ rot.T
+    return MeshData(
+        triangles=mesh.triangles.copy(),
+        positions=pos.astype(np.float32),
+        normals=nor.astype(np.float32),
+        texcoords=mesh.texcoords.copy(),
+    )
+
+
+def make_atrium(target_triangles: int = 250_000, seed: int = 7) -> MeshData:
+    """Sponza-stand-in benchmark scene: a colonnaded atrium.
+
+    Floor + walls, two rows of columns (high-res cylinders via uv spheres
+    stretched), and scattered high-poly spheres until the triangle budget is
+    met. BVH-heavy: deep spatial subdivision, high occlusion.
+    """
+    rng = np.random.default_rng(seed)
+    meshes = []
+
+    # Hall: floor, ceiling, side walls (interior-facing cube shell).
+    hall = transform_mesh(make_cube(1.0), scale=1.0)
+    hall.positions *= np.array([40.0, 15.0, 20.0], np.float32)
+    hall.positions[:, 1] += 7.5
+    meshes.append(hall)
+
+    # Column rows.
+    ncols = 12
+    for i in range(ncols):
+        x = -18.0 + 36.0 * i / (ncols - 1)
+        for zside in (-6.0, 6.0):
+            col = make_uv_sphere(1.0, rings=12, segments=24)
+            col.positions = col.positions * np.array([1.0, 7.0, 1.0], np.float32)
+            col.positions += np.array([x, 7.0, zside], np.float32)
+            meshes.append(col)
+
+    base = merge_meshes(meshes)
+    budget = max(0, target_triangles - base.triangle_count)
+
+    # Fill the remaining budget with scattered high-poly spheres ("props").
+    props = []
+    tris_per_prop = 2 * 14 * 28 - 2 * 28  # uv sphere rings=14 segments=28
+    n_props = max(1, budget // tris_per_prop)
+    for _ in range(n_props):
+        center = np.array(
+            [rng.uniform(-18, 18), rng.uniform(0.5, 3.0), rng.uniform(-8, 8)],
+            np.float32,
+        )
+        radius = float(rng.uniform(0.2, 0.9))
+        props.append(make_uv_sphere(radius, center=center, rings=14, segments=28))
+    return merge_meshes([base] + props)

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (``minipath_tpu_torch``) on one NVIDIA GPU.
 
-Run from the root of a checkout: ``python3 chip_smoke.py``. Five phases,
-each printing one line; any failure raises and the script exits non-zero.
-There is no CPU path: without a CUDA device it fails at once.
+Run from the root of a checkout: ``python3 chip_smoke.py``. Nine phases,
+each printing its lines as it finishes; any failure raises and the script
+exits non-zero. There is no CPU path: without a CUDA device it fails at once.
 
 1. Device: the card's name and power limit.
 2. Build: compiles the traversal kernel (``csrc/traverse.cu``) with nvcc.
@@ -17,12 +17,33 @@ There is no CPU path: without a CUDA device it fails at once.
    mode, once cold and once warm; the warm frame counts kernel launches.
 5. CLI: ``python -m minipath_tpu_torch.cli --device cuda`` writes a PNG.
 
+Phases 6-9 drive the path tracer on the path-traced atrium (the same
+procedural scene with its benchmark materials, leaves of up to 24
+triangles):
+
+6. K2 (the lean trace of ``csrc/traverse.cu``) against its plain version on
+   three sets of 524,288 rays taken from a 1920x1080 @ 2 spp wavefront as
+   the bounce loop makes it (camera rays traced, scattered and compacted):
+   bounce-1 rays closest-hit, the NEE shadow segments of their hits
+   any-hit, and 64 packets rooted at the root's child subtrees; then K2 over
+   the whole 4.18M-ray bounce-1 wavefront.
+7. Main path: ``render_frame_pt`` at 1920x1080 @ 64 spp, 5 bounces, NEE at
+   the first vertex, cold and warm (launches per mode, host syncs and peak
+   memory of the warm frame); then 960x540 @ 8 spp with NEE at every vertex.
+8. The same 64x64 Sobol frame on the card and on the CPU (plain versions).
+9. CLI: ``--integrator pt --nee`` writes a PNG.
+
+``python3 chip_smoke.py --profile DIR`` also writes a ``torch.profiler``
+summary of one warm path-traced frame to DIR.
+
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import argparse
+import functools
 import json
 import subprocess
 import sys
@@ -43,6 +64,13 @@ DISPATCH_SLICE = 64
 # and IEEE steps, so all but ties agree exactly; the normal differs by
 # rsqrtf against torch.rsqrt).
 TRI_MATCH, T_RTOL, NORMAL_ATOL = 0.9999, 1e-5, 1e-4
+# The path tracer's cells (bench.py's pt_1080p64_nee_capped and nee).
+PT_WIDTH, PT_HEIGHT, PT_SPP, PT_BOUNCES = 1920, 1080, 64, 5
+PT_PACKET = 2048
+PT_SET_PACKETS = 256  # 256 x 2048 = 524,288 rays per K2 set
+UV_ATOL = 1e-5
+# Phase 8: the card against the CPU on one Sobol frame.
+FRAME_PIXEL_ATOL, FRAME_PIXEL_SHARE, FRAME_MEAN_RTOL = 1e-3, 0.99, 5e-3
 
 
 def log(phase: str, msg: str) -> None:
@@ -240,7 +268,347 @@ def phase_cli():
         log("5 cli", f"exit 0 in {time.perf_counter() - t0:.1f}s, {out.name} {img.shape} | {' '.join(said)}")
 
 
+def build_pt_atrium():
+    """The path-traced atrium as bench.py builds it: ``make_atrium(250_000)``,
+    ``atrium_materials``, leaves of up to 24 triangles."""
+    from minipath_tpu_torch.scene.procedural import atrium_materials, make_atrium
+    from minipath_tpu_torch.scene.triangle_bvh import TriangleBvh
+
+    t0 = time.perf_counter()
+    mesh = make_atrium(250_000)
+    ids, dicts = atrium_materials(mesh)
+    bvh = TriangleBvh.build(mesh, materials=ids, leaf_max=24)
+    stats = bvh.statistics()
+    print(f"path-traced atrium: {stats['triangles']} triangles, {stats['inner_nodes']} inner nodes, max depth "
+          f"{stats['max_depth']}, stack {bvh.recommended_stack_size}, {int((ids == 4).sum())} emissive triangles, "
+          f"built in {time.perf_counter() - t0:.1f}s", flush=True)
+    return bvh, dicts
+
+
+def pt_parts(bvh, dicts, device):
+    """``(scene, materials, lights, tracer, shadow_tracer)`` on ``device``."""
+    from minipath_tpu_torch.render.wavefront import make_pt_shadow_tracer, make_pt_tracer
+    from minipath_tpu_torch.scene.materials import build_light_table, material_table
+
+    scene = bvh.pt_scene(device)
+    table = material_table(dicts, device)
+    lights = build_light_table(bvh.host_arrays.tri_packets, bvh.host_arrays.tri_material, table)
+    tracer, _ = make_pt_tracer(scene, stack_size=bvh.recommended_stack_size, packet_size=PT_PACKET)
+    shadow, _ = make_pt_shadow_tracer(scene, stack_size=bvh.recommended_stack_size, packet_size=PT_PACKET)
+    return scene, table, lights, tracer, shadow
+
+
+def bounce1_wavefront(parts, device, gen):
+    """The bounce-1 wavefront of one 1920x1080 @ 2 spp chunk of the main
+    path's frame, made as ``_pt_trace`` makes it: strata camera rays traced
+    with K2, scattered off their hits with ``scatter_full``, compacted.
+    Returns ``(rays9, live_packets, live_rays)``."""
+    from minipath_tpu_torch.render import wavefront as W
+    from minipath_tpu_torch.render.frame import gen_frame_rays9
+
+    scene, table, _, tracer, _ = parts
+    samples, seed = 2, 12345
+    sampler = bench_camera().build_sampler((PT_WIDTH, PT_HEIGHT), device)
+    rays9, _ = gen_frame_rays9(sampler, gen, width=PT_WIDTH, height=PT_HEIGHT, px_block=(16, 16), samples=samples,
+                               strat_spp=PT_SPP, strat_offset=0, strat_seed=seed)
+    B0, _, P0 = rays9.shape
+    N = B0 * P0
+    flat = rays9.transpose(1, 2).reshape(N, 9)
+    o, d = flat[:, 0:3], flat[:, 3:6]
+    kh = tracer(scene, o, d, flat[:, 6:9])
+    pixel = torch.arange(N, dtype=torch.int32, device=device)
+    bp0, within = P0 // samples, pixel % P0
+    strat = (within // bp0, ((pixel // P0) * bp0 + within % bp0) ^ seed, PT_SPP, 0)
+    new_dir, _, _, terminate, _, _ = W.scatter_full(table, gen, d, kh.normal, kh.material, strat=strat)
+    hit = kh.tri >= 0
+    nf = torch.where((d * kh.normal).sum(-1, keepdim=True) < 0, kh.normal, -kh.normal)
+    offset = torch.where((new_dir * nf).sum(-1, keepdim=True) >= 0, nf, -nf)
+    new_o = o + d * kh.t[:, None] + offset * W._EPS
+    h = hit[:, None]
+    state = W._PathState(
+        origin=torch.where(h, new_o, o), direction=torch.where(h, new_dir, d),
+        inv_direction=torch.where(h, 1.0 / new_dir, flat[:, 6:9]),
+        throughput=torch.ones_like(o), radiance=torch.zeros_like(o), pixel=pixel, active=hit & ~terminate,
+    )
+    state = W._compact(state, fine_direction=True)
+    live = state.active.sum(dtype=torch.int32)
+    r9, live_packets, _ = W._pack_rays9(PT_PACKET, live, state.origin, state.direction, state.inv_direction)
+    return r9, live_packets, int(live)
+
+
+def compare_pt(name, got, want, anyhit=False):
+    """Agreement of K2's output with its plain version's; raises beyond the
+    tolerances. Any-hit: the occlusion masks must be equal."""
+    n = got.t.numel()
+    ovf = (int(got.overflow.sum()), int(want.overflow.sum()))
+    counters_ok = all(torch.equal(getattr(got, c), getattr(want, c)) for c in ("inner_visits", "leaf_tests"))
+    stats = (f"overflow kernel/plain {ovf}, counters equal {counters_ok}, inner visits/ray "
+             f"{got.inner_visits.sum().item() / n:.1f}, leaf tests/ray {got.leaf_tests.sum().item() / n:.1f}")
+    if anyhit:
+        occ, wocc = got.tri >= 0, want.tri >= 0
+        equal = torch.equal(occ, wocc)
+        text = (f"{name} {tuple(got.t.shape)} = {n} rays: occluded masks equal {equal} "
+                f"({int((occ != wocc).sum())} differ), occluded {occ.float().mean().item():.4f}, {stats}")
+        if not equal or ovf != (0, 0) or not counters_ok:
+            raise AssertionError(f"K2 any-hit disagrees with its plain version: {text}")
+        return text, 0.0
+    same = got.tri == want.tri
+    match = same.float().mean().item()
+    hit = same & (want.tri >= 0)
+    t_rel = ((got.t - want.t).abs() / want.t.abs().clamp_min(1e-30))[hit].max().item()
+    errs = [(getattr(got, f) - getattr(want, f)).abs()[hit].max().item() for f in ("t", "u", "v")]
+    text = (f"{name} {tuple(got.t.shape)} = {n} rays: tri match {match:.6f}, hit rate "
+            f"{(got.tri >= 0).float().mean().item():.4f}, max t rel err {t_rel:.3g}, max u/v err "
+            f"{max(errs[1:]):.3g}, {stats}")
+    if match < TRI_MATCH or t_rel > T_RTOL or max(errs[1:]) > UV_ATOL or ovf != (0, 0) or not counters_ok:
+        raise AssertionError(f"K2 disagrees with its plain version: {text}")
+    return text, max(errs)
+
+
+def phase_k2(bvh, parts, device):
+    from minipath_tpu_torch.render import kernels
+    from minipath_tpu_torch.render import wavefront as W
+    from minipath_tpu_torch.scene.bvh import links as L
+    from minipath_tpu_torch.scene.materials import LAMBERTIAN, METAL, material_rows, sample_lights
+
+    scene, table, lights, _, _ = parts
+    ss = bvh.recommended_stack_size
+    gen = torch.Generator(device=device).manual_seed(1)
+    r9, live_packets, live_rays = bounce1_wavefront(parts, device, gen)
+    n_live_pk = int(live_packets)
+    if n_live_pk < PT_SET_PACKETS:
+        raise AssertionError(f"bounce-1 wavefront has only {n_live_pk} live packets")
+    # Set 1: 256 live packets spread evenly over the sorted wavefront.
+    pick = torch.arange(PT_SET_PACKETS, device=device) * n_live_pk // PT_SET_PACKETS
+    bounce = r9[pick].contiguous()
+    out = {}
+
+    def check(key, label, args, kw, anyhit=False):
+        got = kernels.trace_packets_pt(scene, args, stack_size=ss, anyhit=anyhit, **kw)
+        torch.cuda.synchronize()
+        want = kernels.trace_packets_pt_reference(scene, args, stack_size=ss, anyhit=anyhit, **kw)
+        text, err = compare_pt(label, got, want, anyhit)
+        ms = cuda_ms(lambda: kernels.trace_packets_pt(scene, args, stack_size=ss, anyhit=anyhit, **kw), 20)
+        plain_ms = cuda_ms(lambda: kernels.trace_packets_pt_reference(scene, args, stack_size=ss, anyhit=anyhit,
+                                                                      **kw), 1)
+        log("6 k2", f"{text} | kernel {ms:.4f} ms, plain {plain_ms:.2f} ms")
+        out[key] = dict(ms=ms, plain_ms=plain_ms, err=err)
+        return got
+
+    hits = check("bounce1", "bounce-1 closest-hit", bounce, {})
+
+    # Set 2: the NEE shadow segments of those hits, sorted and packed as the
+    # bounce loop does ("pos" sort, candidates as a live prefix).
+    flat = bounce.transpose(1, 2).reshape(-1, 9)
+    o, d = flat[:, 0:3], flat[:, 3:6]
+    tri = hits.tri.reshape(-1)
+    normal, material, _ = W.shade_from_flat(scene.shade_flat, tri, hits.u.reshape(-1), hits.v.reshape(-1))
+    nf = torch.where((d * normal).sum(-1, keepdim=True) < 0, normal, -normal)
+    kind, fuzz, _, _ = material_rows(table, material)
+    cand = ((kind == LAMBERTIAN) | ((kind == METAL) & (fuzz >= W.GLOSSY_MIN_FUZZ))) & (tri >= 0)
+    sh_o = o + d * hits.t.reshape(-1)[:, None] + nf * W._EPS
+    y, wi, pdf, _, cos_y, _ = sample_lights(lights, gen, sh_o)
+    cand = cand & ((wi * nf).sum(-1) > 0) & (cos_y > 1e-6) & (pdf > 0)
+    o_s, s_s, n_cand, _ = W._shadow_batch(cand, sh_o, y - wi * W._EPS - sh_o, wi)
+    inv = torch.where(s_s == 0.0, torch.full_like(s_s, torch.inf), 1.0 / s_s)
+    shadow9, live_s, _ = W._pack_rays9(PT_PACKET, n_cand, o_s, s_s, inv)
+    log("6 k2", f"NEE shadow set: {int(n_cand)} candidate segments of {tri.numel()} hits "
+        f"({int(live_s)} live packets)")
+    check("shadow", "NEE shadow any-hit", shadow9, dict(t_max=W._SHADOW_T_MAX, live_packets=live_s), anyhit=True)
+
+    # Set 3: 64 packets, each rooted at one of the root's child subtrees.
+    child_links = bvh.host_arrays.node_child_links[int(bvh.host_arrays.root) >> L.COUNT_BITS]
+    children = [int(c) for c in child_links if c != L.NULL_LINK]
+    n_roots = min(64, PT_SET_PACKETS)
+    roots = torch.tensor([children[i % len(children)] for i in range(n_roots)], dtype=torch.int32, device=device)
+    check("roots", "per-packet roots", bounce[:n_roots].contiguous(), dict(roots=roots))
+
+    ms = cuda_ms(lambda: kernels.trace_packets_pt(scene, r9, stack_size=ss, live_packets=live_packets), 5)
+    log("6 k2", f"whole bounce-1 wavefront {tuple(r9.shape)}, {live_rays} live rays in {n_live_pk} packets: "
+        f"kernel {ms:.3f} ms = {live_rays / ms / 1e3:.1f} Mrays/s")
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def frame_inputs(device, width, height):
+    """The bench camera's sampler and the sky, made once per size: set-up,
+    whose host-to-device copies stay out of a warm frame."""
+    from minipath_tpu_torch.scene.materials import Environment
+
+    return bench_camera().build_sampler((width, height), device), Environment.sky(device)
+
+
+def render_pt(parts, device, width, height, spp, nee_max_depth, samples_per_packet, seed):
+    """One path-traced frame of the bench camera; returns ``(host image,
+    seconds)``: host clock from the call to the image on the host."""
+    from minipath_tpu_torch.render.wavefront import render_frame_pt
+
+    scene, table, lights, tracer, shadow = parts
+    sampler, env = frame_inputs(device, width, height)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = render_frame_pt(
+        tracer, scene, table, sampler, gen, width=width, height=height, spp=spp, bounces=PT_BOUNCES,
+        env=env, samples_per_packet=samples_per_packet, compaction=True, lights=lights,
+        shadow_tracer=shadow, nee_max_depth=nee_max_depth,
+    ).cpu().numpy()
+    seconds = time.perf_counter() - t0
+    if img.shape != (height, width, 4) or not np.isfinite(img).all():
+        raise AssertionError(f"path-traced image {img.shape} is not finite")
+    if not img[..., :3].mean() > 0:
+        raise AssertionError("path-traced image is black")
+    return img, seconds
+
+
+def phase_pt_main_path(parts, device, smi):
+    import warnings
+
+    from minipath_tpu_torch.render import kernels
+
+    paths = PT_WIDTH * PT_HEIGHT * PT_SPP
+    _, cold = render_pt(parts, device, PT_WIDTH, PT_HEIGHT, PT_SPP, 1, 2, seed=0)
+    for mode in kernels.trace_packets_pt.launches:
+        kernels.trace_packets_pt.launches[mode] = 0
+    torch.cuda.reset_peak_memory_stats(device)
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            img, warm = render_pt(parts, device, PT_WIDTH, PT_HEIGHT, PT_SPP, 1, 2, seed=1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    launches = dict(kernels.trace_packets_pt.launches)
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    peak = torch.cuda.max_memory_allocated(device)
+    if min(launches.values()) == 0:
+        raise AssertionError(f"the path-traced frame did not launch K2 in every mode: {launches}")
+    log("7 pt main path", f"render_frame_pt {PT_WIDTH}x{PT_HEIGHT} @ {PT_SPP} spp, {PT_BOUNCES} bounces, NEE at "
+        f"depth 1, samples_per_packet 2 on {smi}: warm frame {warm:.3f} s = {paths / warm / 1e6:.2f} Mpaths/s "
+        f"(cold {cold:.3f} s) | K2 launches {launches} | host syncs in the warm frame {syncs} | peak device memory {peak / 1e9:.2f} GB | image mean {img[..., :3].mean():.5f}, all "
+        f"finite")
+
+    w2, h2, spp2 = 960, 540, 8
+    _, cold2 = render_pt(parts, device, w2, h2, spp2, None, spp2, seed=2)
+    for mode in kernels.trace_packets_pt.launches:
+        kernels.trace_packets_pt.launches[mode] = 0
+    torch.cuda.reset_peak_memory_stats(device)
+    img2, sec2 = render_pt(parts, device, w2, h2, spp2, None, spp2, seed=3)
+    log("7 pt main path", f"render_frame_pt {w2}x{h2} @ {spp2} spp, {PT_BOUNCES} bounces, NEE at every vertex: "
+        f"warm frame {sec2:.3f} s = {w2 * h2 * spp2 / sec2 / 1e6:.2f} Mpaths/s (cold {cold2:.3f} s) | K2 "
+        f"launches {dict(kernels.trace_packets_pt.launches)} | peak device memory "
+        f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB | image mean {img2[..., :3].mean():.5f}, "
+        f"all finite")
+    return sum(launches.values())
+
+
+def phase_card_vs_cpu(bvh, dicts, device):
+    """The same Sobol frame (every dimension a pure function of pixel,
+    sample and seed; no roulette fires) on the card and on the CPU."""
+    from minipath_tpu_torch.render.wavefront import render_frame_pt
+    from minipath_tpu_torch.scene.materials import Environment
+
+    def frame(dev):
+        scene, table, lights, tracer, shadow = pt_parts(bvh, dicts, dev)
+        t0 = time.perf_counter()
+        img = render_frame_pt(
+            tracer, scene, table, bench_camera().build_sampler((64, 64), dev), None, width=64, height=64, spp=4,
+            bounces=3, env=Environment.sky(dev), samples_per_packet=4, lights=lights, shadow_tracer=shadow,
+            sobol=True, shadow_rr=False, strat_seed=2024,
+        ).cpu()
+        return img, time.perf_counter() - t0
+
+    got, t_card = frame(device)
+    want, t_cpu = frame(torch.device("cpu"))
+    close = ((got - want).abs().amax(dim=-1) <= FRAME_PIXEL_ATOL).float().mean().item()
+    m_got, m_want = got[..., :3].mean().item(), want[..., :3].mean().item()
+    rel = abs(m_got - m_want) / abs(m_want)
+    text = (f"64x64 @ 4 spp Sobol, 3 bounces, NEE: pixels within {FRAME_PIXEL_ATOL} {close:.4f}, means card "
+            f"{m_got:.6f} / cpu {m_want:.6f} (rel {rel:.2e}), max abs diff {(got - want).abs().max().item():.3g} | "
+            f"card {t_card:.2f} s, cpu (plain versions) {t_cpu:.2f} s")
+    if not torch.isfinite(got).all() or close < FRAME_PIXEL_SHARE or rel > FRAME_MEAN_RTOL:
+        raise AssertionError(f"the card's frame disagrees with the CPU's: {text}")
+    log("8 card vs cpu", text)
+
+
+def phase_pt_cli():
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "atrium_pt.png"
+        cmd = [sys.executable, "-m", "minipath_tpu_torch.cli", "--scene", "atrium", "--integrator", "pt", "--nee",
+               "--width", "480", "--height", "270", "--spp", "8", "--device", "cuda", "--no-stats", "-o", str(out)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0 or not out.exists():
+            raise AssertionError(f"CLI failed (exit {proc.returncode}):\n{proc.stderr[-4000:]}")
+        from PIL import Image
+
+        img = np.asarray(Image.open(out))
+        if img.shape != (270, 480, 4) or not (img[..., :3] > 0).any():
+            raise AssertionError(f"CLI image {img.shape} is empty")
+        said = [ln for ln in proc.stderr.splitlines() if ln.startswith("path traced")]
+        log("9 pt cli", f"exit 0 in {time.perf_counter() - t0:.1f}s, {out.name} {img.shape}, mean "
+            f"{img[..., :3].mean():.1f}/255 | {' '.join(said)}")
+
+
+def profile_pt_frame(parts, device, out_dir: Path):
+    """A ``torch.profiler`` trace of one warm path-traced frame; writes the
+    per-kernel table and a summary by kind to ``out_dir``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, seconds = render_pt(parts, device, PT_WIDTH, PT_HEIGHT, PT_SPP, 1, 2, seed=4)
+    kinds = {}
+    intervals = []
+    for evt in prof.events():
+        if getattr(evt, "device_type", None) is None or "CUDA" not in str(evt.device_type):
+            continue
+        dur = evt.time_range.end - evt.time_range.start
+        intervals.append((evt.time_range.start, evt.time_range.end))
+        name = evt.name
+        if "traverse_kernel<true, false>" in name:
+            kind = "K2 closest-hit"
+        elif "traverse_kernel<true, true>" in name:
+            kind = "K2 any-hit"
+        elif "sort" in name.lower() or "radix" in name.lower() or "cub::" in name:
+            kind = "sorts"
+        elif "CatArray" in name:
+            kind = "cat copies"
+        elif "index" in name.lower() or "gather" in name.lower() or "scatter" in name.lower():
+            kind = "gathers and scatters"
+        elif "elementwise" in name.lower() or "vectorized" in name.lower() or "reduce" in name.lower():
+            kind = "elementwise and reductions"
+        elif "memcpy" in name.lower() or "memset" in name.lower():
+            kind = "copies and fills"
+        else:
+            kind = "other"
+        kinds[kind] = kinds.get(kind, 0.0) + dur
+    busy = 0.0
+    end = None
+    for a, b in sorted(intervals):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    span = (max(b for _, b in intervals) - min(a for a, _ in intervals)) if intervals else 0.0
+    out_dir.mkdir(parents=True, exist_ok=True)
+    table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=60)
+    (out_dir / "profile_pt.txt").write_text(table)
+    summary = {
+        "frame_s": seconds, "device_span_ms": span / 1e3, "device_busy_ms": busy / 1e3,
+        "idle_share": 1.0 - busy / span if span else None,
+        "by_kind_ms": {k: v / 1e3 for k, v in sorted(kinds.items(), key=lambda kv: -kv[1])},
+    }
+    (out_dir / "profile_pt.json").write_text(json.dumps(summary, indent=1))
+    log("profile", json.dumps(summary))
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description="Smoke test of minipath_tpu_torch on one NVIDIA GPU.")
+    parser.add_argument("--profile", type=Path, default=None, metavar="DIR",
+                        help="also profile one warm path-traced frame and write the summary to DIR")
+    args = parser.parse_args()
     smi = phase_device()
     phase_build()
     from minipath_tpu_torch.scene.procedural import make_atrium
@@ -256,16 +624,37 @@ def main() -> int:
     kernel = phase_kernel(bvh, device)
     launches = phase_main_path(bvh, device, smi)
     phase_cli()
-    print(json.dumps({"kernels": [{
-        "name": "traverse",
-        "route": "cuda",
-        "source": "minipath_tpu_torch/csrc/traverse.cu",
-        "replaces": "minipath_tpu/render/pallas_kernels.py:165",
-        "launches": launches,
-        "max_abs_err": max(r["err"] for r in kernel.values()),
-        "ms": kernel["dispatch slice"]["ms"],
-        "plain_ms": kernel["dispatch slice"]["plain_ms"],
-    }]}), flush=True)
+
+    pt_bvh, dicts = build_pt_atrium()
+    parts = pt_parts(pt_bvh, dicts, device)
+    k2 = phase_k2(pt_bvh, parts, device)
+    k2_launches = phase_pt_main_path(parts, device, smi)
+    phase_card_vs_cpu(pt_bvh, dicts, device)
+    phase_pt_cli()
+    if args.profile is not None:
+        profile_pt_frame(parts, device, args.profile)
+    print(json.dumps({"kernels": [
+        {
+            "name": "traverse",
+            "route": "cuda",
+            "source": "minipath_tpu_torch/csrc/traverse.cu",
+            "replaces": "minipath_tpu/render/pallas_kernels.py:165",
+            "launches": launches,
+            "max_abs_err": max(r["err"] for r in kernel.values()),
+            "ms": kernel["dispatch slice"]["ms"],
+            "plain_ms": kernel["dispatch slice"]["plain_ms"],
+        },
+        {
+            "name": "traverse_pt",
+            "route": "cuda",
+            "source": "minipath_tpu_torch/csrc/traverse.cu",
+            "replaces": "minipath_tpu/render/pallas_kernels.py:1375",
+            "launches": k2_launches,
+            "max_abs_err": max(r["err"] for r in k2.values()),
+            "ms": k2["bounce1"]["ms"],
+            "plain_ms": k2["bounce1"]["plain_ms"],
+        },
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}), flush=True)

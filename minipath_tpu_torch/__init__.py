@@ -1,32 +1,54 @@
 """minipath_tpu_torch — the minipath renderer on PyTorch and CUDA.
 
 A port of the JAX/Pallas package ``minipath_tpu`` to PyTorch, with the
-traversal kernel written by hand in CUDA C++ for NVIDIA Hopper
+traversal kernels written by hand in CUDA C++ for NVIDIA Hopper
 (``csrc/traverse.cu``). It keeps the JAX package's module layout and public
 API: ``render``, ``RenderProgress``, ``RenderSettings``, ``Camera``,
-``Scene``, ``TriangleBvh``, ``ScreenBlock``. Device code takes an explicit
+``Scene``, ``TriangleBvh``, ``ScreenBlock``, and the path tracer
+``render_frame_pt`` with its materials. Device code takes an explicit
 ``device``; random numbers come from ``torch.Generator``. Importing it never
 imports JAX.
 
-What is ported so far is the parity render path (grayscale ``|d.n|``
-shading, the CLI's ``--integrator normal``); the path tracer waits.
+Ported so far: the parity render path (grayscale ``|d.n|`` shading, the
+CLI's ``--integrator normal``) and the wavefront path tracer (materials,
+next-event estimation with MIS, roulette, compaction; ``--integrator pt``).
 """
 
 from minipath_tpu_torch.camera import Camera, CameraSampler
 from minipath_tpu_torch.render import RenderProgress, RenderSettings, render
+from minipath_tpu_torch.render.wavefront import make_pt_shadow_tracer, make_pt_tracer, render_frame_pt
 from minipath_tpu_torch.scene import Scene
+from minipath_tpu_torch.scene.materials import (
+    Environment,
+    build_light_table,
+    dielectric,
+    emissive,
+    lambertian,
+    material_table,
+    metal,
+)
 from minipath_tpu_torch.scene.triangle_bvh import TriangleBvh
 from minipath_tpu_torch.screen_block import ScreenBlock
 
 __all__ = [
     "Camera",
     "CameraSampler",
+    "Environment",
     "RenderProgress",
     "RenderSettings",
     "Scene",
     "ScreenBlock",
     "TriangleBvh",
+    "build_light_table",
+    "dielectric",
+    "emissive",
+    "lambertian",
+    "make_pt_shadow_tracer",
+    "make_pt_tracer",
+    "material_table",
+    "metal",
     "render",
+    "render_frame_pt",
 ]
 
 __version__ = "0.1.0"

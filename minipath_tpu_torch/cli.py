@@ -1,21 +1,35 @@
 """Command-line front-end.
 
-Port of ``minipath_tpu/cli.py`` for the parity integrator (``--integrator
-normal``, grayscale ``|d.n|``): the reference's camera recipe (looking from
+Port of ``minipath_tpu/cli.py``: the reference's camera recipe (looking from
 (0,2,10) at (0,1.5,0), f/4.8 focused at 10 m, 2048x1536, 64-px tiles,
-100 spp), BVH statistics printed at startup, a progress bar driven by the
-finished-tile callback, and the image written to a PNG. ``--device`` picks
-the torch device (default ``cuda``); there is no fallback to another device.
+100 spp), BVH statistics printed at startup, and the image written to a PNG.
+Two integrators: ``--integrator normal``, the reference-parity grayscale
+``|d.n|`` through ``render()`` with a progress bar driven by the
+finished-tile callback, and ``--integrator pt``, the wavefront path tracer
+under a sky environment (with ``--nee``, light sampling of the emissive
+triangles). ``--device`` picks the torch device (default ``cuda``); there is
+no fallback to another device.
 
 Scenes are an OBJ file (``--obj``), or procedural: ``sphere-mesh``, or the
-benchmark ``atrium``. Without ``--obj`` the ``obj`` scene renders the
-procedural sphere.
+benchmark ``atrium`` (path traced with its benchmark materials, whose
+ceiling panels emit). Without ``--obj`` the ``obj`` scene renders the
+procedural sphere; OBJ and sphere scenes are path traced in grey.
+
+Not ported: ``--devices``, ``--denoise``, ``--aov`` and ``--adaptive``.
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
+import time
+
+
+def _positive_int(text: str) -> int:
+    v = int(text)
+    if v < 1:
+        raise argparse.ArgumentTypeError(f"must be >= 1, got {v}")
+    return v
 
 
 def _progress_bar(finished: int, total: int, width: int = 40) -> str:
@@ -26,7 +40,7 @@ def _progress_bar(finished: int, total: int, width: int = 40) -> str:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="minipath-tpu-torch",
-        description="minipath renderer on PyTorch/CUDA (parity integrator).",
+        description="minipath renderer on PyTorch/CUDA.",
     )
     p.add_argument("--obj", default=None, help="OBJ file to render (default: a procedural sphere)")
     p.add_argument("--scene", choices=["obj", "sphere-mesh", "atrium"], default="obj", help="scene source")
@@ -44,25 +58,51 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--quiet", "-q", action="store_true")
     p.add_argument(
         "--integrator",
-        choices=["normal"],
+        choices=["normal", "pt"],
         default="normal",
-        help="'normal' = reference-parity |d.n| shading",
+        help="'normal' = reference-parity |d.n| shading; 'pt' = path tracing with a sky environment "
+        "(OBJ scenes get a default grey material)",
     )
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda", help="torch device to render on")
+    p.add_argument("--bounces", type=int, default=6, help="path-tracer bounce budget")
+    p.add_argument("--no-compaction", action="store_true", help="path tracer: no wavefront compaction between bounces")
+    p.add_argument("--nee", action="store_true", help="path tracer: next-event estimation (light sampling with MIS; "
+                   "needs emissive materials, e.g. --scene atrium)")
+    p.add_argument("--nee-depth", type=_positive_int, default=None, metavar="K", help="path tracer: light-sample "
+                   "only the first K path vertices (unbiased at any K); requires --nee and an emissive scene")
+    p.add_argument("--no-shadow-rr", action="store_true", help="path tracer: no Russian roulette of shadow rays")
+    p.add_argument("--rr-start", type=_positive_int, default=3, metavar="B", help="path tracer: first bounce at "
+                   "which path Russian roulette may end a path (unbiased at any setting)")
+    p.add_argument("--rr-floor", type=float, default=0.05, metavar="P", help="path tracer: roulette "
+                   "survival-probability floor (unbiased; 1.0 disables roulette)")
+    p.add_argument("--tail-cut", type=float, default=None, metavar="F", help="path tracer: retire the whole "
+                   "wavefront once fewer than F of its paths are live (BIASED; off by default)")
+    p.add_argument("--iid", action="store_true", help="path tracer: iid sampling instead of per-pixel strata")
+    p.add_argument("--sobol", action="store_true", help="path tracer: Owen-scrambled Sobol sample dimensions "
+                   "instead of jittered strata")
+    p.add_argument("--clamp", type=float, default=None, metavar="L", help="path tracer: cap each sample's "
+                   "radiance at L before averaging (firefly suppression; biased)")
     return p
 
 
 def load_scene(args):
+    """``(bvh, material dicts or None)`` for the chosen scene."""
     from minipath_tpu_torch.scene import procedural
     from minipath_tpu_torch.scene.triangle_bvh import TriangleBvh
 
     if args.scene == "atrium":
-        return TriangleBvh.build(procedural.make_atrium())
+        mesh = procedural.make_atrium()
+        if args.integrator == "pt":
+            # The benchmark material set: emissive ceiling panels, metal and
+            # glass props, so --nee has lights.
+            ids, dicts = procedural.atrium_materials(mesh)
+            return TriangleBvh.build(mesh, materials=ids), dicts
+        return TriangleBvh.build(mesh), None
     if args.scene == "obj" and args.obj:
-        return TriangleBvh.with_obj(args.obj)
+        return TriangleBvh.with_obj(args.obj), None
     if args.scene == "obj":
         print("no --obj given; rendering procedural sphere", file=sys.stderr)
-    return TriangleBvh.build(procedural.make_uv_sphere(1.0, rings=32, segments=64))
+    return TriangleBvh.build(procedural.make_uv_sphere(1.0, rings=32, segments=64)), None
 
 
 def main(argv=None) -> int:
@@ -78,7 +118,10 @@ def main(argv=None) -> int:
             print("--device cuda: no CUDA device is available", file=sys.stderr)
             return 2
 
-    bvh = load_scene(args)
+    if args.sobol and args.iid:
+        print("--sobol and --iid are mutually exclusive", file=sys.stderr)
+        return 2
+    bvh, material_dicts = load_scene(args)
     if not args.no_stats:
         bvh.print_statistics()
 
@@ -88,6 +131,8 @@ def main(argv=None) -> int:
         .f_number(args.f_number)
         .focus_distance(args.focus)
     )
+    if args.integrator == "pt":
+        return _render_pt(args, bvh, camera, material_dicts)
     settings = RenderSettings(
         tile_size=args.tile_size,
         sample_count=args.spp,
@@ -120,6 +165,71 @@ def main(argv=None) -> int:
         file=sys.stderr,
     )
     save_png(args.output, progress.image())
+    print(f"saved {args.output}", file=sys.stderr)
+    return 0
+
+
+def _render_pt(args, bvh, camera, material_dicts) -> int:
+    """Path-traced whole frame under a sky environment, gamma 2.2."""
+    import numpy as np
+    import torch
+
+    from minipath_tpu_torch.render.wavefront import make_pt_shadow_tracer, make_pt_tracer, render_frame_pt
+    from minipath_tpu_torch.scene.materials import Environment, build_light_table, lambertian, material_table
+    from minipath_tpu_torch.utils.image import color_to_image, save_png
+
+    device = torch.device(args.device)
+    table = material_table(material_dicts if material_dicts is not None else [lambertian((0.73, 0.73, 0.73))],
+                           device)
+    scene = bvh.pt_scene(device)
+    stack = bvh.recommended_stack_size
+    tracer, _ = make_pt_tracer(scene, stack_size=stack)
+    shadow_tracer = lights = None
+    if args.nee:
+        lights = build_light_table(bvh.host_arrays.tri_packets, bvh.host_arrays.tri_material, table)
+        if lights is None:
+            print("--nee: scene has no emissive triangles; continuing without light sampling", file=sys.stderr)
+        else:
+            shadow_tracer, _ = make_pt_shadow_tracer(scene, stack_size=stack)
+    nee_depth = args.nee_depth if shadow_tracer is not None else None
+    if args.nee_depth is not None and nee_depth is None:
+        print("--nee-depth has no effect: requires --nee and an emissive scene; rendering without light "
+              "sampling", file=sys.stderr)
+    t0 = time.perf_counter()
+    img = render_frame_pt(
+        tracer,
+        scene,
+        table,
+        camera.build_sampler((args.width, args.height), device),
+        torch.Generator(device=device).manual_seed(args.seed),
+        width=args.width,
+        height=args.height,
+        spp=args.spp,
+        bounces=args.bounces,
+        env=Environment.sky(device),
+        samples_per_packet=min(8, args.spp),
+        compaction=not args.no_compaction,
+        lights=lights,
+        shadow_tracer=shadow_tracer,
+        shadow_rr=not args.no_shadow_rr,
+        nee_max_depth=nee_depth,
+        rr_start=args.rr_start,
+        rr_floor=args.rr_floor,
+        min_live_frac=args.tail_cut,
+        stratify=not args.iid,
+        sobol=args.sobol,
+        clamp=args.clamp,
+    )
+    a = img.cpu().numpy()
+    elapsed = time.perf_counter() - t0
+    paths = args.width * args.height * args.spp
+    print(
+        f"path traced {args.width}x{args.height} @ {args.spp} spp, {args.bounces} bounces on {args.device} "
+        f"in {elapsed:.2f}s ({paths / elapsed / 1e6:.1f} Mpaths/s)",
+        file=sys.stderr,
+    )
+    a[..., :3] = np.clip(a[..., :3], 0.0, 1.0) ** (1 / 2.2)  # display gamma
+    save_png(args.output, color_to_image(a))
     print(f"saved {args.output}", file=sys.stderr)
     return 0
 

@@ -1,13 +1,19 @@
-// Closest-hit traversal of the 8-wide BVH over the f32 kernel layout, one
-// thread per ray. Port of minipath_tpu/render/pallas_kernels.py
-// ::_traverse_kernel; the Python wrapper, the plain PyTorch version and the
-// design note are in minipath_tpu_torch/render/kernels.py.
+// BVH traversal of the 8-wide BVH over the f32 kernel layout, one thread per
+// ray. One loop, three instances:
+//   full closest-hit (K1): port of minipath_tpu/render/pallas_kernels.py
+//     ::_traverse_kernel, with the shading normal and material epilogue;
+//   lean closest-hit (K2) and lean any-hit (K2, occlusion): port of
+//     pallas_kernels.py::_traverse_kernel_pt, which returns (t, tri, u, v)
+//     and leaves shading to the caller.
+// The Python wrappers, the plain PyTorch version and the design note are in
+// minipath_tpu_torch/render/kernels.py.
 //
 // Scene rows (all 16-byte aligned, read through the read-only cache):
 //   node_box   (N, 48) f32: child c at [6c, 6c+6) = min xyz, max xyz
 //   node_links (N, 8)  i32: encoded child links (scene/bvh/links.py)
 //   tri_data   (M, 80) f32: lane l at [9l, 9l+9) = v0, e1, e2; [72+l] = material
 //   tri_shade  (M, 72) f32: lane l at [9l, 9l+9) = vertex normals n0, n1, n2
+//              (full mode only)
 // Rays: (B, 9, P) f32 rows o, d, inv_d, so neighbouring threads load
 // neighbouring words.
 //
@@ -26,24 +32,47 @@
 
 namespace {
 
-__global__ void __launch_bounds__(MP_BLOCK) traverse_kernel(
-    const float* __restrict__ node_box, const int* __restrict__ node_links,
-    const float* __restrict__ tri_data, const float* __restrict__ tri_shade,
-    int root, const float* __restrict__ rays9, int64_t n_rays,
-    int64_t live_rays, int P, int stack_size, float t_max,
-    float* __restrict__ t_out, int* __restrict__ tri_out,
-    float* __restrict__ normal_out, int* __restrict__ mat_out,
-    int* __restrict__ counters) {
-  const int64_t ray = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const bool valid = ray < n_rays;
-  const int64_t b = valid ? ray / P : 0;
+struct TraceArgs {
+  const float* node_box;
+  const int* node_links;
+  const float* tri_data;
+  const float* tri_shade;  // full mode only
+  int root;                // used where `roots` is null
+  const int* roots;        // (B,) per-packet roots, or null
+  // Live packets as one i32 in device memory (read by the kernel, so the
+  // caller needs no host sync), or null: then `live_rays` is the bound.
+  const int* live_packets;
+  int64_t live_rays;
+  const float* rays9;
+  int64_t n_rays;
+  int P;
+  int stack_size;
+  float t_max;
+  float* t_out;
+  int* tri_out;
+  float* normal_out;  // full mode
+  int* mat_out;       // full mode
+  float* u_out;       // lean mode
+  float* v_out;       // lean mode
+  int* counters;      // (B, 3) i32, zeroed by the caller
+};
 
-  float best_t = t_max, best_u = 0.f, best_v = 0.f;
+// LEAN: write (u, v) instead of the shading normal and material.
+// ANYHIT: a ray stops after the first 8-triangle packet in which it has a
+// hit with 0 <= t < t_max; only `tri >= 0` then carries meaning.
+template <bool LEAN, bool ANYHIT>
+__global__ void __launch_bounds__(MP_BLOCK) traverse_kernel(const TraceArgs a) {
+  const int64_t ray = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool valid = ray < a.n_rays;
+  const int64_t b = valid ? ray / a.P : 0;
+  const int P = a.P;
+
+  float best_t = a.t_max, best_u = 0.f, best_v = 0.f;
   int best_tri = -1;
   int ovf = 0, ivis = 0, ltst = 0;
 
   if (valid) {
-    const float* r = rays9 + b * 9 * P + (ray - b * P);
+    const float* r = a.rays9 + b * 9 * P + (ray - b * P);
     const float ox = __ldg(r), oy = __ldg(r + P), oz = __ldg(r + 2 * P);
     const float dx = __ldg(r + 3 * P), dy = __ldg(r + 4 * P), dz = __ldg(r + 5 * P);
     // 1/d clamped to +-1e30: rays carry +inf for a zero component, and the
@@ -52,10 +81,13 @@ __global__ void __launch_bounds__(MP_BLOCK) traverse_kernel(
     const float iy = fminf(fmaxf(__ldg(r + 7 * P), -1e30f), 1e30f);
     const float iz = fminf(fmaxf(__ldg(r + 8 * P), -1e30f), 1e30f);
 
+    const int root = a.roots ? __ldg(a.roots + b) : a.root;
+    const bool live = a.live_packets ? b < (int64_t)__ldg(a.live_packets) : ray < a.live_rays;
+
     int stack_link[MP_STACK_CAPACITY];
     float stack_t[MP_STACK_CAPACITY];
     int sp = 0;
-    if (root != MP_NULL_LINK && ray < live_rays) {
+    if (root != MP_NULL_LINK && live) {
       stack_link[0] = root;
       stack_t[0] = 0.f;
       sp = 1;
@@ -71,8 +103,8 @@ __global__ void __launch_bounds__(MP_BLOCK) traverse_kernel(
 
       if (count == 0) {
         ++ivis;
-        const float2* box = reinterpret_cast<const float2*>(node_box + (int64_t)idx * 48);
-        const int4* lk = reinterpret_cast<const int4*>(node_links + (int64_t)idx * 8);
+        const float2* box = reinterpret_cast<const float2*>(a.node_box + (int64_t)idx * 48);
+        const int4* lk = reinterpret_cast<const int4*>(a.node_links + (int64_t)idx * 8);
         const int4 la = __ldg(lk), lb = __ldg(lk + 1);
         const int links[8] = {la.x, la.y, la.z, la.w, lb.x, lb.y, lb.z, lb.w};
         // Hit children, sorted by entry distance, farthest first (stable
@@ -104,7 +136,7 @@ __global__ void __launch_bounds__(MP_BLOCK) traverse_kernel(
         }
         for (int k = 0; k < n_hit; ++k) {
           // Bounded push: an entry that does not fit is dropped and counted.
-          if (sp < stack_size) {
+          if (sp < a.stack_size) {
             stack_link[sp] = hit_link[k];
             stack_t[sp] = hit_t[k];
             ++sp;
@@ -116,7 +148,7 @@ __global__ void __launch_bounds__(MP_BLOCK) traverse_kernel(
         ltst += count;
         for (int j = 0; j < count; ++j) {
           const int pk = idx + j;
-          const float* row = tri_data + (int64_t)pk * 80;
+          const float* row = a.tri_data + (int64_t)pk * 80;
 #pragma unroll 2
           for (int lane = 0; lane < 8; ++lane) {
             const float* tr = row + 9 * lane;
@@ -143,41 +175,50 @@ __global__ void __launch_bounds__(MP_BLOCK) traverse_kernel(
               best_v = v;
             }
           }
+          if (ANYHIT && best_tri >= 0) break;
         }
+        // Occlusion: the first packet with a hit ends the ray's traversal.
+        if (ANYHIT && best_tri >= 0) sp = 0;
       }
     }
 
-    // Shading normal of the winning hit, interpolated once from its (u, v):
-    // the same value the TPU kernel carries through every accepted hit.
-    float nx = 0.f, ny = 0.f, nz = 0.f;
-    int mat = 0;
-    if (best_tri >= 0) {
-      const int pk = best_tri >> 3, lane = best_tri & 7;
-      const float* sh = tri_shade + (int64_t)pk * 72 + 9 * lane;
-      const float n0x = __ldg(sh), n0y = __ldg(sh + 1), n0z = __ldg(sh + 2);
-      const float n1x = __ldg(sh + 3), n1y = __ldg(sh + 4), n1z = __ldg(sh + 5);
-      const float n2x = __ldg(sh + 6), n2y = __ldg(sh + 7), n2z = __ldg(sh + 8);
-      const float ix_ = n0x + best_u * (n1x - n0x) + best_v * (n2x - n0x);
-      const float iy_ = n0y + best_u * (n1y - n0y) + best_v * (n2y - n0y);
-      const float iz_ = n0z + best_u * (n1z - n0z) + best_v * (n2z - n0z);
-      const float inv_len = rsqrtf(fmaxf(ix_ * ix_ + iy_ * iy_ + iz_ * iz_, 1e-30f));
-      nx = ix_ * inv_len;
-      ny = iy_ * inv_len;
-      nz = iz_ * inv_len;
-      mat = (int)__ldg(tri_data + (int64_t)pk * 80 + 72 + lane);
+    a.t_out[ray] = best_t;
+    a.tri_out[ray] = best_tri;
+    if (LEAN) {
+      a.u_out[ray] = best_u;
+      a.v_out[ray] = best_v;
+    } else {
+      // Shading normal of the winning hit, interpolated once from its
+      // (u, v): the value the TPU kernel carries through every accepted hit.
+      float nx = 0.f, ny = 0.f, nz = 0.f;
+      int mat = 0;
+      if (best_tri >= 0) {
+        const int pk = best_tri >> 3, lane = best_tri & 7;
+        const float* sh = a.tri_shade + (int64_t)pk * 72 + 9 * lane;
+        const float n0x = __ldg(sh), n0y = __ldg(sh + 1), n0z = __ldg(sh + 2);
+        const float n1x = __ldg(sh + 3), n1y = __ldg(sh + 4), n1z = __ldg(sh + 5);
+        const float n2x = __ldg(sh + 6), n2y = __ldg(sh + 7), n2z = __ldg(sh + 8);
+        const float ix_ = n0x + best_u * (n1x - n0x) + best_v * (n2x - n0x);
+        const float iy_ = n0y + best_u * (n1y - n0y) + best_v * (n2y - n0y);
+        const float iz_ = n0z + best_u * (n1z - n0z) + best_v * (n2z - n0z);
+        const float inv_len = rsqrtf(fmaxf(ix_ * ix_ + iy_ * iy_ + iz_ * iz_, 1e-30f));
+        nx = ix_ * inv_len;
+        ny = iy_ * inv_len;
+        nz = iz_ * inv_len;
+        mat = (int)__ldg(a.tri_data + (int64_t)pk * 80 + 72 + lane);
+      }
+      a.normal_out[3 * ray] = nx;
+      a.normal_out[3 * ray + 1] = ny;
+      a.normal_out[3 * ray + 2] = nz;
+      a.mat_out[ray] = mat;
     }
-    t_out[ray] = best_t;
-    tri_out[ray] = best_tri;
-    normal_out[3 * ray] = nx;
-    normal_out[3 * ray + 1] = ny;
-    normal_out[3 * ray + 2] = nz;
-    mat_out[ray] = mat;
   }
 
   // Per-packet counters (sums over the packet's rays): one atomic per warp
   // where the whole warp lies in one packet, one per thread otherwise.
   const unsigned full = 0xffffffffu;
   const int64_t b0 = __shfl_sync(full, b, 0);
+  int* counters = a.counters;
   if (__all_sync(full, valid && b == b0)) {
     for (int off = 16; off > 0; off >>= 1) {
       ovf += __shfl_down_sync(full, ovf, off);
@@ -196,6 +237,17 @@ __global__ void __launch_bounds__(MP_BLOCK) traverse_kernel(
   }
 }
 
+template <bool LEAN, bool ANYHIT>
+int launch(const TraceArgs& a, void* stream) {
+  if (a.stack_size < 1 || a.stack_size > MP_STACK_CAPACITY || a.P < 1)
+    return (int)cudaErrorInvalidValue;
+  if (a.n_rays == 0) return 0;
+  const int64_t blocks = (a.n_rays + MP_BLOCK - 1) / MP_BLOCK;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  traverse_kernel<LEAN, ANYHIT><<<(unsigned)blocks, MP_BLOCK, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -204,25 +256,63 @@ int mp_stack_capacity() { return MP_STACK_CAPACITY; }
 
 const char* mp_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// Launches the traversal on `stream` and returns the launch's cudaError_t
-// (0 on success). `counters` is (B, 3) i32 and must be zeroed by the caller.
+// K1: full closest-hit. Launches on `stream` and returns the launch's
+// cudaError_t (0 on success). `counters` is (B, 3) i32, zeroed by the caller.
 int mp_trace_packets(const void* node_box, const void* node_links,
                      const void* tri_data, const void* tri_shade, int root,
                      const void* rays9, int64_t n_rays, int64_t live_rays,
                      int P, int stack_size, float t_max, void* t_out,
                      void* tri_out, void* normal_out, void* mat_out,
                      void* counters, void* stream) {
-  if (stack_size < 1 || stack_size > MP_STACK_CAPACITY || P < 1)
-    return (int)cudaErrorInvalidValue;
-  if (n_rays == 0) return 0;
-  const int64_t blocks = (n_rays + MP_BLOCK - 1) / MP_BLOCK;
-  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  traverse_kernel<<<(unsigned)blocks, MP_BLOCK, 0, (cudaStream_t)stream>>>(
-      (const float*)node_box, (const int*)node_links, (const float*)tri_data,
-      (const float*)tri_shade, root, (const float*)rays9, n_rays, live_rays, P,
-      stack_size, t_max, (float*)t_out, (int*)tri_out, (float*)normal_out,
-      (int*)mat_out, (int*)counters);
-  return (int)cudaGetLastError();
+  TraceArgs a{};
+  a.node_box = (const float*)node_box;
+  a.node_links = (const int*)node_links;
+  a.tri_data = (const float*)tri_data;
+  a.tri_shade = (const float*)tri_shade;
+  a.root = root;
+  a.live_rays = live_rays;
+  a.rays9 = (const float*)rays9;
+  a.n_rays = n_rays;
+  a.P = P;
+  a.stack_size = stack_size;
+  a.t_max = t_max;
+  a.t_out = (float*)t_out;
+  a.tri_out = (int*)tri_out;
+  a.normal_out = (float*)normal_out;
+  a.mat_out = (int*)mat_out;
+  a.counters = (int*)counters;
+  return launch<false, false>(a, stream);
+}
+
+// K2: lean closest-hit (anyhit == 0) or any-hit (anyhit != 0). `roots` is
+// (B,) i32 or null (then `root` for every packet); `live_packets` is one i32
+// in device memory or null (every packet live). Outputs t, tri, u, v are
+// (B*P,); `counters` is (B, 3) i32, zeroed by the caller.
+int mp_trace_packets_pt(const void* node_box, const void* node_links,
+                        const void* tri_data, int root, const void* roots,
+                        const void* live_packets, const void* rays9,
+                        int64_t n_rays, int P, int stack_size, float t_max,
+                        int anyhit, void* t_out, void* tri_out, void* u_out,
+                        void* v_out, void* counters, void* stream) {
+  TraceArgs a{};
+  a.node_box = (const float*)node_box;
+  a.node_links = (const int*)node_links;
+  a.tri_data = (const float*)tri_data;
+  a.root = root;
+  a.roots = (const int*)roots;
+  a.live_packets = (const int*)live_packets;
+  a.live_rays = n_rays;
+  a.rays9 = (const float*)rays9;
+  a.n_rays = n_rays;
+  a.P = P;
+  a.stack_size = stack_size;
+  a.t_max = t_max;
+  a.t_out = (float*)t_out;
+  a.tri_out = (int*)tri_out;
+  a.u_out = (float*)u_out;
+  a.v_out = (float*)v_out;
+  a.counters = (int*)counters;
+  return anyhit ? launch<true, true>(a, stream) : launch<true, false>(a, stream);
 }
 
 }  // extern "C"

@@ -15,8 +15,8 @@ XORed with a seed) map to their two's-complement bit pattern by the same
 mask.
 
 The per-render seed is an explicit ``int`` here (the JAX package derives it
-from the render's PRNG key with ``render_seed``): callers XOR it into
-``pid``.
+from the render's PRNG key): callers XOR it into ``pid``, and
+:func:`render_seed` draws one from a ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ import torch
 __all__ = [
     "grid_factor",
     "hash_shift",
+    "render_seed",
     "sobol1d",
     "sobol2d",
     "strat1d",
@@ -63,6 +64,13 @@ def grid_factor(spp: int) -> tuple[int, int]:
     while spp % gy:
         gy -= 1
     return spp // gy, gy
+
+
+def render_seed(generator: torch.Generator | None) -> int:
+    """A per-render int32 seed drawn from ``generator`` (one host sync when
+    the generator lives on a card)."""
+    device = generator.device if generator is not None else "cpu"
+    return int(torch.randint(-(2**31), 2**31, (), generator=generator, device=device))
 
 
 def hash_shift(pid: torch.Tensor, spp: int, salt: int) -> torch.Tensor:

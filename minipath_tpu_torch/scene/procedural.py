@@ -166,3 +166,27 @@ def make_atrium(target_triangles: int = 250_000, seed: int = 7) -> MeshData:
         radius = float(rng.uniform(0.2, 0.9))
         props.append(make_uv_sphere(radius, center=center, rings=14, segments=28))
     return merge_meshes([base] + props)
+
+
+def atrium_materials(mesh: MeshData, seed: int = 11):
+    """Benchmark material assignment for :func:`make_atrium`: diffuse
+    structure, metal / glass / red-diffuse props by height band, emissive
+    ceiling panels. Returns ``(per-triangle material ids, material dict
+    list)``; feed the list to
+    ``minipath_tpu_torch.scene.materials.material_table``."""
+    from minipath_tpu_torch.scene.materials import dielectric, emissive, lambertian, metal
+
+    tri_y = mesh.positions[mesh.triangles][:, :, 1].mean(axis=1)
+    rng = np.random.default_rng(seed)
+    mats = np.zeros(mesh.triangle_count, np.int32)
+    mats[tri_y > 10.0] = 4  # ceiling emissive panels
+    props = (tri_y > 0.1) & (tri_y < 4.0)
+    mats[props] = rng.integers(1, 4, props.sum())
+    dicts = [
+        lambertian((0.65, 0.62, 0.58)),  # 0 structure
+        lambertian((0.7, 0.3, 0.25)),  # 1
+        metal((0.85, 0.8, 0.7), 0.15),  # 2
+        dielectric(1.5),  # 3
+        emissive((1.0, 0.95, 0.85), 4.0),  # 4
+    ]
+    return mats, dicts

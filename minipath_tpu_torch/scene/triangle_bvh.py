@@ -5,7 +5,8 @@ Public surface mirrors the reference
 ``TriangleBvh.with_obj(path)``, ``TriangleBvh.build``, ``get_bounding_box``,
 ``statistics``/``print_statistics``. The host-side build
 (``bvh/build.py``) does the heavy lifting; :meth:`TriangleBvh.kernel_scene`
-lays the arrays out for the traversal kernel on a chosen device. A card holds
+and :meth:`TriangleBvh.pt_scene` lay the arrays out for the traversal
+kernels on a chosen device. A card holds
 the whole scene in its device memory, so there is one kernel layout (f32) and
 no fallback between layouts.
 """
@@ -27,6 +28,7 @@ class TriangleBvh:
         self._build = build_result
         self._device_arrays: dict[torch.device, BvhArrays] = {}
         self._kernel_scenes: dict = {}
+        self._pt_scenes: dict = {}
 
     # -- constructors -----------------------------------------------------------
 
@@ -58,6 +60,17 @@ class TriangleBvh:
         if device not in self._kernel_scenes:
             self._kernel_scenes[device] = prepare_scene(self.arrays(device))
         return self._kernel_scenes[device]
+
+    def pt_scene(self, device):
+        """Lean path-tracing layout on ``device`` (cached; see
+        ``render/kernels.py::prepare_scene_pt``). One layout, f32, with no
+        fallback: material ids are checked before it is built."""
+        from minipath_tpu_torch.render.kernels import prepare_scene_pt
+
+        device = torch.device(device)
+        if device not in self._pt_scenes:
+            self._pt_scenes[device] = prepare_scene_pt(self.arrays(device))
+        return self._pt_scenes[device]
 
     @property
     def host_arrays(self) -> BvhArrays:

@@ -1,0 +1,145 @@
+"""The CUDA lean trace (K2) and the path tracer on the card, against their
+plain PyTorch versions.
+
+Every test here needs an NVIDIA GPU and skips without one. The file imports
+neither JAX nor the JAX package: ``python -m pytest --noconftest -q
+tests/test_torch_cuda_pt.py``.
+
+K2 and its plain version take the same IEEE steps in the same order (the
+library is built with ``-fmad=false``), so ``t``, ``tri``, ``u``, ``v`` and
+the counters agree exactly in closest-hit mode, and any-hit mode returns the
+same triangle. A Sobol frame on the card and on the CPU agrees within 1e-3
+on at least 99% of pixels (torch's float32 math on the two devices rounds
+``sin``, ``cos``, ``exp`` and ``log`` differently).
+"""
+
+import pytest
+import torch
+
+from minipath_tpu_torch import Camera, TriangleBvh
+from minipath_tpu_torch.render import kernels
+from minipath_tpu_torch.render import wavefront as tw
+from minipath_tpu_torch.scene import materials as tm
+from minipath_tpu_torch.scene import procedural
+from minipath_tpu_torch.scene.bvh import links as L
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def atrium():
+    mesh = procedural.make_atrium(20_000)
+    ids, dicts = procedural.atrium_materials(mesh)
+    return TriangleBvh.build(mesh, materials=ids, leaf_max=24), dicts
+
+
+def _camera():
+    return Camera().look_at((-16.0, 4.0, 0.0), (10.0, 3.0, 0.5)).f_number(8.0).sensor_width(36e-3)
+
+
+def _bounce_rays(atrium, device, B=16, P=2048, seed=0):
+    """Camera rays, traced once and scattered off their hits as the bounce
+    loop does (a miss keeps its ray): bounce-1 rays in the kernel's
+    layout."""
+    from minipath_tpu_torch.render.frame import gen_frame_rays9
+
+    bvh, dicts = atrium
+    scene = bvh.pt_scene(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    w, h = 256, B * P // 256
+    rays9, _ = gen_frame_rays9(_camera().build_sampler((w, h), device), gen, width=w, height=h,
+                               px_block=(16, 16), samples=1)
+    flat = rays9.transpose(1, 2).reshape(-1, 9)
+    o, d = flat[:, 0:3], flat[:, 3:6]
+    tracer, _ = tw.make_pt_tracer(scene, stack_size=bvh.recommended_stack_size)
+    kh = tracer(scene, o, d, flat[:, 6:9])
+    new_dir, *_ = tw.scatter_full(tm.material_table(dicts, device), gen, d, kh.normal, kh.material)
+    nf = torch.where((d * kh.normal).sum(-1, keepdim=True) < 0, kh.normal, -kh.normal)
+    hit = (kh.tri >= 0)[:, None]
+    o = torch.where(hit, o + d * kh.t[:, None] + nf * 1e-3, o)
+    d = torch.where(hit, new_dir, d)
+    r9, _, _ = tw._pack_rays9(P, None, o, d, 1.0 / d)
+    return r9
+
+
+def _assert_same(got, want):
+    for name in ("t", "tri", "u", "v", "overflow", "inner_visits", "leaf_tests"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+
+
+def test_closest_hit_matches_plain_version(cuda, atrium):
+    bvh, _ = atrium
+    scene = bvh.pt_scene(cuda)
+    r9 = _bounce_rays(atrium, cuda)
+    ss = bvh.recommended_stack_size
+    before = dict(kernels.trace_packets_pt.launches)
+    got = kernels.trace_packets_pt(scene, r9, stack_size=ss)
+    torch.cuda.synchronize()
+    assert kernels.trace_packets_pt.launches["closest"] == before["closest"] + 1
+    want = kernels.trace_packets_pt_reference(scene, r9, stack_size=ss)
+    _assert_same(got, want)
+    assert (got.tri >= 0).float().mean().item() > 0.5 and int(got.overflow.sum()) == 0
+
+
+def test_anyhit_and_live_count_match_plain_version(cuda, atrium):
+    bvh, _ = atrium
+    scene = bvh.pt_scene(cuda)
+    r9 = _bounce_rays(atrium, cuda, B=8, seed=1)
+    # Shadow segments of length 4 along the bounce directions.
+    seg = r9[:, 3:6] * 4.0
+    s9 = torch.cat([r9[:, 0:3], seg, 1.0 / seg], dim=1).contiguous()
+    ss = bvh.recommended_stack_size
+    live = torch.tensor([5], dtype=torch.int32, device=cuda)
+    before = kernels.trace_packets_pt.launches["anyhit"]
+    got = kernels.trace_packets_pt(scene, s9, stack_size=ss, t_max=tw._SHADOW_T_MAX, anyhit=True, live_packets=live)
+    assert kernels.trace_packets_pt.launches["anyhit"] == before + 1
+    want = kernels.trace_packets_pt_reference(scene, s9, stack_size=ss, t_max=tw._SHADOW_T_MAX, anyhit=True,
+                                              live_packets=live)
+    _assert_same(got, want)
+    occ = got.tri >= 0
+    assert 0.05 < occ[:5].float().mean().item() < 0.95 and not occ[5:].any()
+
+
+def test_roots_match_plain_version(cuda, atrium):
+    bvh, _ = atrium
+    scene = bvh.pt_scene(cuda)
+    r9 = _bounce_rays(atrium, cuda, B=8, seed=2)
+    links = bvh.host_arrays.node_child_links[int(bvh.host_arrays.root) >> L.COUNT_BITS]
+    children = [int(c) for c in links if c != L.NULL_LINK]
+    roots = torch.tensor([children[i % len(children)] for i in range(7)] + [L.NULL_LINK], dtype=torch.int32,
+                         device=cuda)
+    ss = bvh.recommended_stack_size
+    got = kernels.trace_packets_pt(scene, r9, stack_size=ss, roots=roots)
+    _assert_same(got, kernels.trace_packets_pt_reference(scene, r9, stack_size=ss, roots=roots))
+    assert torch.all(got.tri[7] == -1) and (got.tri[:7] >= 0).any()
+
+
+def test_sobol_frame_on_card_matches_cpu(cuda, atrium):
+    bvh, dicts = atrium
+    kw = dict(width=32, height=32, spp=4, bounces=3, samples_per_packet=4, sobol=True, shadow_rr=False,
+              strat_seed=77)
+
+    def frame(device):
+        scene = bvh.pt_scene(device)
+        table = tm.material_table(dicts, device)
+        tracer, _ = tw.make_pt_tracer(scene, stack_size=bvh.recommended_stack_size)
+        shadow, _ = tw.make_pt_shadow_tracer(scene, stack_size=bvh.recommended_stack_size)
+        lights = tm.build_light_table(bvh.host_arrays.tri_packets, bvh.host_arrays.tri_material, table)
+        return tw.render_frame_pt(tracer, scene, table, _camera().build_sampler((32, 32), device), None,
+                                  lights=lights, shadow_tracer=shadow, **kw).cpu()
+
+    before = dict(kernels.trace_packets_pt.launches)
+    got = frame(cuda)
+    assert all(kernels.trace_packets_pt.launches[m] > before[m] for m in before)
+    want = frame("cpu")
+    assert torch.isfinite(got).all()
+    close = ((got - want).abs().amax(dim=-1) <= 1e-3).float().mean().item()
+    assert close >= 0.99, close
+    torch.testing.assert_close(got[..., :3].mean(), want[..., :3].mean(), rtol=5e-3, atol=0)

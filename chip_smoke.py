@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (``minipath_tpu_torch``) on one NVIDIA GPU.
 
-Run from the root of a checkout: ``python3 chip_smoke.py``. Nine phases,
+Run from the root of a checkout: ``python3 chip_smoke.py``. Twelve phases,
 each printing its lines as it finishes; any failure raises and the script
 exits non-zero. There is no CPU path: without a CUDA device it fails at once.
 
 1. Device: the card's name and power limit.
-2. Build: compiles the traversal kernel (``csrc/traverse.cu``) with nvcc.
+2. Build: compiles both traversal sources (``csrc/traverse.cu``: K1, K2;
+   ``csrc/traverse_q.cu``: K3) with nvcc, the two at once, and prints what
+   ptxas says of each kernel (registers, stack frame, spills).
 3. Kernel against its plain PyTorch version on the card, on the
    249,284-triangle procedural atrium: 16,384 coherent camera rays from the
    benchmark camera, 16,384 incoherent rays inside the atrium, and the first
@@ -33,11 +35,34 @@ triangles):
 8. The same 64x64 Sobol frame on the card and on the CPU (plain versions).
 9. CLI: ``--integrator pt --nee`` writes a PNG.
 
-``python3 chip_smoke.py --profile DIR`` also writes a ``torch.profiler``
-summary of one warm path-traced frame to DIR.
+Phases 10-12 drive the 16-bit quantized layout (K3, ``csrc/traverse_q.cu``)
+on bench.py's Sponza-scale atrium (``make_atrium(600_000)``, leaves of up to
+24 triangles) and on the path-traced atrium of phases 6-9:
 
-The line before the last is a JSON object describing each kernel; the last
-line is ``{"ok": true, "device": {...}}``.
+10. K3 against its plain version on the card, in its three modes: full
+    closest-hit on the first 524,288 rays of a main-path dispatch of the big
+    atrium (made as phase 3 makes them), lean closest-hit on phase 6's
+    bounce-1 set and any-hit on its NEE shadow set, each beside K1 or K2 on
+    the same rays and the f32 layout; then K3 and K1 over the whole
+    dispatch, K3 and K2 over the whole bounce-1 wavefront.
+11. Parity main path on the quantized layout (bench.py's
+    ``bench_big_scene``): ``render_frame`` of the big atrium at 1920x1080 @
+    64 spp, 32 samples per packet, cold and warm, and the same frame over
+    the f32 layout; the two means agree within 1%.
+12. Path tracer on the quantized layout: bench.py's ``bench_pt_big`` (the
+    big atrium, grey Lambertian, sky, 960x540 @ 8 spp, 5 bounces); phase
+    7's NEE-capped 1080p frame over the path-traced atrium's ``QPTScene``,
+    its mean within 1% of phase 7's under the same seed; phase 8's Sobol
+    frame on ``QPTScene``, card against CPU.
+
+``python3 chip_smoke.py --profile DIR`` also writes a ``torch.profiler``
+summary of one warm path-traced frame to DIR, over the f32 layout (after
+phase 9) and over the quantized one (after phase 12).
+
+The line before the last is a JSON object describing each kernel (its time,
+its plain version's time, its launches on the main path and its bound: the
+larger of its float32 operations over the card's FP32 peak and its bytes
+over the HBM rate); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -45,6 +70,7 @@ from __future__ import annotations
 import argparse
 import functools
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -71,6 +97,32 @@ PT_SET_PACKETS = 256  # 256 x 2048 = 524,288 rays per K2 set
 UV_ATOL = 1e-5
 # Phase 8: the card against the CPU on one Sobol frame.
 FRAME_PIXEL_ATOL, FRAME_PIXEL_SHARE, FRAME_MEAN_RTOL = 1e-3, 0.99, 5e-3
+# Phases 11-12: a frame over the quantized layout against the f32 one.
+LAYOUT_MEAN_RTOL = 0.01
+# bench.py's Sponza-scale scene.
+BIG_TRIANGLES = 600_000
+
+# The card's published peaks (NVIDIA H100 SXM data sheet, 700 W): float32
+# outside the tensor cores, and HBM bandwidth.
+PEAK_FP32_OPS, PEAK_HBM_BYTES = 67e12, 3.35e12
+# Float32 operations of one traversal step, counted in the kernels' sources.
+# Slab test of one child box: 6 subtractions, 6 multiplies, 12 min/max, 1
+# compare. Two-sided Moller-Trumbore of one triangle lane: 2 cross products
+# (9 each), 3 dot products (5 each), a reciprocal, 3 subtractions, 3
+# multiplies by 1/det and 6 compares (with u + v). K3 first decompresses:
+# 6 multiplies and 6 adds per child box; 9 of each per lane's vertices and
+# 6 subtractions for its edges.
+SLAB_OPS, MT_OPS = 25, 48
+COST = {
+    # kernel: (ops per child box, ops per triangle lane, bytes per node row
+    #          visited, per triangle packet's vertices, per distinct
+    #          triangle hit (its normals and material, for the epilogue),
+    #          and written per ray)
+    "traverse": (SLAB_OPS, MT_OPS, 48 * 4 + 8 * 4, 72 * 4, 9 * 4 + 4, 4 + 4 + 12 + 4),
+    "traverse_pt": (SLAB_OPS, MT_OPS, 48 * 4 + 8 * 4, 72 * 4, 0, 4 * 4),
+    "traverse_q": (SLAB_OPS + 12, MT_OPS + 24, 32 * 4, 36 * 4, 9 + 2, 4 + 4 + 12 + 4),
+    "traverse_q_lean": (SLAB_OPS + 12, MT_OPS + 24, 32 * 4, 36 * 4, 0, 4 * 4),
+}
 
 
 def log(phase: str, msg: str) -> None:
@@ -98,6 +150,34 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def traversal_bound(kernel, rows, r9, hits, **kw):
+    """The least time the card could take for one traversal launch, as
+    ``(ms, "operations" or "bytes", text)``: the larger of its float32
+    operations over the FP32 peak and its bytes over the HBM rate. The
+    operations come from the launch's own counters (inner visits x 8 child
+    boxes, leaf packets x 8 lanes); the bytes are the rays read once, the
+    outputs and counters written once, and each scene row the traversal
+    touches read once, found by the plain traversal over ``rows`` (K1's
+    layout; K3's decompressed rows keep its indices) with the launch's
+    arguments ``kw``."""
+    from minipath_tpu_torch.render import kernels
+
+    slab, mt, node_b, packet_b, hit_b, out_b = COST[kernel]
+    touched = {}
+    kernels._traverse_reference(rows, r9, touched=touched, **kw)
+    B, _, P = r9.shape
+    ops = int(hits.inner_visits.sum()) * 8 * slab + int(hits.leaf_tests.sum()) * 8 * mt
+    n_nodes, n_packets = int(touched["nodes"].sum()), int(touched["packets"].sum())
+    n_hit = int(torch.unique(hits.tri[hits.tri >= 0]).numel())
+    nbytes = B * P * (9 * 4 + out_b) + B * 3 * 4 + n_nodes * node_b + n_packets * packet_b + n_hit * hit_b
+    op_ms, byte_ms = ops / PEAK_FP32_OPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    by = "operations" if op_ms >= byte_ms else "bytes"
+    text = (f"bound {max(op_ms, byte_ms):.4f} ms by {by} ({ops / 1e9:.3f} Gop = {op_ms:.4f} ms; "
+            f"{nbytes / 1e6:.2f} MB = {byte_ms:.4f} ms: {n_nodes} node rows, {n_packets} packets, {n_hit} hit "
+            f"triangles)")
+    return max(op_ms, byte_ms), by, text
+
+
 def phase_device():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this script needs an NVIDIA GPU")
@@ -114,13 +194,18 @@ def phase_device():
 
 
 def phase_build():
-    from minipath_tpu_torch.render import kernels
+    """Both sources at once, one nvcc each."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from minipath_tpu_torch.render import kernels, kernels_q
 
     t0 = time.perf_counter()
-    built = kernels.load_library()
-    regs = [ln.strip() for ln in built.log.splitlines() if "registers" in ln or "spill" in ln]
-    log("2 build", f"{built.path.name} nvcc {built.build_seconds:.2f}s "
-        f"(load {time.perf_counter() - t0:.2f}s) | {' | '.join(regs)}")
+    with ThreadPoolExecutor(2) as pool:
+        libs = [f.result() for f in [pool.submit(kernels.load_library), pool.submit(kernels_q.load_library)]]
+    for built in libs:
+        regs = [ln.strip() for ln in built.log.splitlines() if "registers" in ln or "spill" in ln]
+        log("2 build", f"{built.path.name} nvcc {built.build_seconds:.2f}s | {' | '.join(regs)}")
+    log("2 build", f"both built and loaded in {time.perf_counter() - t0:.2f}s")
 
 
 def dispatch_rays9(sampler, device, generator):
@@ -201,8 +286,10 @@ def phase_kernel(bvh, device):
         text, err = compare(name, got, want)
         ms = cuda_ms(lambda: kernels.trace_packets(scene, r9, stack_size=stack), 20)
         plain_ms = cuda_ms(lambda: kernels.trace_packets_reference(scene, r9, stack_size=stack), 1)
-        log("3 kernel", f"{text} | kernel {ms:.4f} ms, plain {plain_ms:.2f} ms")
-        results[name] = dict(ms=ms, plain_ms=plain_ms, err=err)
+        bound_ms, bound_by, bound = traversal_bound("traverse", scene, r9, got, stack_size=stack, t_max=math.inf,
+                                                    live_packets=None)
+        log("3 kernel", f"{text} | kernel {ms:.4f} ms, plain {plain_ms:.2f} ms | {bound}")
+        results[name] = dict(ms=ms, plain_ms=plain_ms, err=err, bound_ms=bound_ms, bound_by=bound_by)
 
     n = dispatch.shape[0] * dispatch.shape[2]
     ms = cuda_ms(lambda: kernels.trace_packets(scene, dispatch, stack_size=stack), 5)
@@ -285,12 +372,13 @@ def build_pt_atrium():
     return bvh, dicts
 
 
-def pt_parts(bvh, dicts, device):
-    """``(scene, materials, lights, tracer, shadow_tracer)`` on ``device``."""
+def pt_parts(bvh, dicts, device, quantized=False):
+    """``(scene, materials, lights, tracer, shadow_tracer)`` on ``device``,
+    over the f32 layout (K2) or the quantized one (K3)."""
     from minipath_tpu_torch.render.wavefront import make_pt_shadow_tracer, make_pt_tracer
     from minipath_tpu_torch.scene.materials import build_light_table, material_table
 
-    scene = bvh.pt_scene(device)
+    scene = bvh.quantized_pt_scene(device) if quantized else bvh.pt_scene(device)
     table = material_table(dicts, device)
     lights = build_light_table(bvh.host_arrays.tri_packets, bvh.host_arrays.tri_material, table)
     tracer, _ = make_pt_tracer(scene, stack_size=bvh.recommended_stack_size, packet_size=PT_PACKET)
@@ -336,9 +424,10 @@ def bounce1_wavefront(parts, device, gen):
     return r9, live_packets, int(live)
 
 
-def compare_pt(name, got, want, anyhit=False):
-    """Agreement of K2's output with its plain version's; raises beyond the
-    tolerances. Any-hit: the occlusion masks must be equal."""
+def compare_pt(name, got, want, anyhit=False, kernel="K2"):
+    """Agreement of a lean kernel's output (K2's or K3's) with its plain
+    version's; raises beyond the tolerances. Any-hit: the occlusion masks
+    must be equal."""
     n = got.t.numel()
     ovf = (int(got.overflow.sum()), int(want.overflow.sum()))
     counters_ok = all(torch.equal(getattr(got, c), getattr(want, c)) for c in ("inner_visits", "leaf_tests"))
@@ -350,7 +439,7 @@ def compare_pt(name, got, want, anyhit=False):
         text = (f"{name} {tuple(got.t.shape)} = {n} rays: occluded masks equal {equal} "
                 f"({int((occ != wocc).sum())} differ), occluded {occ.float().mean().item():.4f}, {stats}")
         if not equal or ovf != (0, 0) or not counters_ok:
-            raise AssertionError(f"K2 any-hit disagrees with its plain version: {text}")
+            raise AssertionError(f"{kernel} any-hit disagrees with its plain version: {text}")
         return text, 0.0
     same = got.tri == want.tri
     match = same.float().mean().item()
@@ -361,7 +450,7 @@ def compare_pt(name, got, want, anyhit=False):
             f"{(got.tri >= 0).float().mean().item():.4f}, max t rel err {t_rel:.3g}, max u/v err "
             f"{max(errs[1:]):.3g}, {stats}")
     if match < TRI_MATCH or t_rel > T_RTOL or max(errs[1:]) > UV_ATOL or ovf != (0, 0) or not counters_ok:
-        raise AssertionError(f"K2 disagrees with its plain version: {text}")
+        raise AssertionError(f"{kernel} disagrees with its plain version: {text}")
     return text, max(errs)
 
 
@@ -391,8 +480,12 @@ def phase_k2(bvh, parts, device):
         ms = cuda_ms(lambda: kernels.trace_packets_pt(scene, args, stack_size=ss, anyhit=anyhit, **kw), 20)
         plain_ms = cuda_ms(lambda: kernels.trace_packets_pt_reference(scene, args, stack_size=ss, anyhit=anyhit,
                                                                       **kw), 1)
-        log("6 k2", f"{text} | kernel {ms:.4f} ms, plain {plain_ms:.2f} ms")
-        out[key] = dict(ms=ms, plain_ms=plain_ms, err=err)
+        bound_ms, bound_by, bound = traversal_bound(
+            "traverse_pt", scene, args, got, stack_size=ss, anyhit=anyhit,
+            **{"t_max": math.inf, "live_packets": None, **kw},
+        )
+        log("6 k2", f"{text} | kernel {ms:.4f} ms, plain {plain_ms:.2f} ms | {bound}")
+        out[key] = dict(ms=ms, plain_ms=plain_ms, err=err, bound_ms=bound_ms, bound_by=bound_by)
         return got
 
     hits = check("bounce1", "bounce-1 closest-hit", bounce, {})
@@ -426,7 +519,9 @@ def phase_k2(bvh, parts, device):
     ms = cuda_ms(lambda: kernels.trace_packets_pt(scene, r9, stack_size=ss, live_packets=live_packets), 5)
     log("6 k2", f"whole bounce-1 wavefront {tuple(r9.shape)}, {live_rays} live rays in {n_live_pk} packets: "
         f"kernel {ms:.3f} ms = {live_rays / ms / 1e3:.1f} Mrays/s")
-    return out
+    # Phase 10 traces the same sets with K3.
+    sets = dict(bounce=bounce, shadow=(shadow9, live_s), wavefront=(r9, live_packets, live_rays))
+    return out, sets
 
 
 @functools.lru_cache(maxsize=None)
@@ -438,9 +533,10 @@ def frame_inputs(device, width, height):
     return bench_camera().build_sampler((width, height), device), Environment.sky(device)
 
 
-def render_pt(parts, device, width, height, spp, nee_max_depth, samples_per_packet, seed):
+def render_pt(parts, device, width, height, spp, nee_max_depth, samples_per_packet, seed, lit=True):
     """One path-traced frame of the bench camera; returns ``(host image,
-    seconds)``: host clock from the call to the image on the host."""
+    seconds)``: host clock from the call to the image on the host. Raises
+    on a non-finite image, and on a black one where the scene is ``lit``."""
     from minipath_tpu_torch.render.wavefront import render_frame_pt
 
     scene, table, lights, tracer, shadow = parts
@@ -456,7 +552,7 @@ def render_pt(parts, device, width, height, spp, nee_max_depth, samples_per_pack
     seconds = time.perf_counter() - t0
     if img.shape != (height, width, 4) or not np.isfinite(img).all():
         raise AssertionError(f"path-traced image {img.shape} is not finite")
-    if not img[..., :3].mean() > 0:
+    if lit and not img[..., :3].mean() > 0:
         raise AssertionError("path-traced image is black")
     return img, seconds
 
@@ -499,17 +595,17 @@ def phase_pt_main_path(parts, device, smi):
         f"launches {dict(kernels.trace_packets_pt.launches)} | peak device memory "
         f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB | image mean {img2[..., :3].mean():.5f}, "
         f"all finite")
-    return sum(launches.values())
+    return sum(launches.values()), float(img[..., :3].mean())
 
 
-def phase_card_vs_cpu(bvh, dicts, device):
+def phase_card_vs_cpu(bvh, dicts, device, quantized=False, phase="8 card vs cpu"):
     """The same Sobol frame (every dimension a pure function of pixel,
     sample and seed; no roulette fires) on the card and on the CPU."""
     from minipath_tpu_torch.render.wavefront import render_frame_pt
     from minipath_tpu_torch.scene.materials import Environment
 
     def frame(dev):
-        scene, table, lights, tracer, shadow = pt_parts(bvh, dicts, dev)
+        scene, table, lights, tracer, shadow = pt_parts(bvh, dicts, dev, quantized)
         t0 = time.perf_counter()
         img = render_frame_pt(
             tracer, scene, table, bench_camera().build_sampler((64, 64), dev), None, width=64, height=64, spp=4,
@@ -528,7 +624,7 @@ def phase_card_vs_cpu(bvh, dicts, device):
             f"card {t_card:.2f} s, cpu (plain versions) {t_cpu:.2f} s")
     if not torch.isfinite(got).all() or close < FRAME_PIXEL_SHARE or rel > FRAME_MEAN_RTOL:
         raise AssertionError(f"the card's frame disagrees with the CPU's: {text}")
-    log("8 card vs cpu", text)
+    log(phase, text)
 
 
 def phase_pt_cli():
@@ -550,9 +646,209 @@ def phase_pt_cli():
             f"{img[..., :3].mean():.1f}/255 | {' '.join(said)}")
 
 
-def profile_pt_frame(parts, device, out_dir: Path):
+def build_big_atrium(device):
+    """bench.py's Sponza-scale atrium: ``make_atrium(600_000)``, leaves of up
+    to 24 triangles, with its quantized layout on ``device``."""
+    from minipath_tpu_torch.scene.bvh.quantize import root_frame
+    from minipath_tpu_torch.scene.procedural import make_atrium
+    from minipath_tpu_torch.scene.triangle_bvh import TriangleBvh
+
+    t0 = time.perf_counter()
+    bvh = TriangleBvh.build(make_atrium(BIG_TRIANGLES), leaf_max=24)
+    built = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    q = bvh.quantized_scene(device)
+    # K3 seeds its root entry with the stored box; the quantizer encoded the
+    # root's children against root_frame(box). The two must be one box.
+    box = q.root_box.cpu().numpy()
+    if not np.array_equal(root_frame(box), box):
+        raise AssertionError(f"root_frame(root_box) {root_frame(box)} differs from the stored root box {box}")
+    stats = bvh.statistics()
+    print(f"big atrium: {stats['triangles']} triangles, {stats['inner_nodes']} inner nodes, max depth "
+          f"{stats['max_depth']}, stack {bvh.recommended_stack_size}, built in {built:.1f}s, quantized in "
+          f"{time.perf_counter() - t0:.1f}s: {(q.node_q.numel() + q.tri_q.numel()) * 4 / 1e6:.1f} MB against "
+          f"{bvh.f32_scene_bytes() / 1e6:.1f} MB for the f32 layout", flush=True)
+    return bvh
+
+
+def phase_k3(big, pt_bvh, pt_scene, sets, device):
+    """K3 against its plain version in its three modes, and beside K1 or K2
+    on the same rays over the f32 layout."""
+    from minipath_tpu_torch.render import kernels, kernels_q
+    from minipath_tpu_torch.render import wavefront as W
+
+    out = {}
+
+    def check(key, label, scene, r9, rival, rival_name, lean=False, anyhit=False, **kw):
+        kw = {"stack_size": kw.pop("stack_size"), "t_max": math.inf, "live_packets": None, **kw}
+
+        def run():
+            return kernels_q.trace_packets_q(scene, r9, lean=lean, anyhit=anyhit, **kw)
+
+        got = run()
+        torch.cuda.synchronize()
+        want = kernels_q.trace_packets_q_reference(scene, r9, lean=lean, anyhit=anyhit, **kw)
+        if lean:
+            text, err = compare_pt(label, got, want, anyhit, kernel="K3")
+        else:
+            text, err = compare(label, got, want)
+        ms = cuda_ms(run, 20)
+        rival_ms = cuda_ms(rival, 20)
+        plain_ms = cuda_ms(lambda: kernels_q.trace_packets_q_reference(scene, r9, lean=lean, anyhit=anyhit, **kw), 1)
+        bound_ms, bound_by, bound = traversal_bound(
+            "traverse_q_lean" if lean else "traverse_q", kernels_q.decompressed_kernel_scene(scene), r9, got,
+            anyhit=anyhit, **kw,
+        )
+        log("10 k3", f"{text} | K3 {ms:.4f} ms, plain {plain_ms:.2f} ms, {rival_name} on the same rays "
+            f"{rival_ms:.4f} ms (K3/{rival_name} {ms / rival_ms:.3f}) | {bound}")
+        out[key] = dict(ms=ms, plain_ms=plain_ms, rival_ms=rival_ms, err=err, bound_ms=bound_ms, bound_by=bound_by)
+
+    # Full mode: the big atrium, a main-path dispatch's first 524,288 rays.
+    ss = big.recommended_stack_size
+    q, f32 = big.quantized_scene(device), big.kernel_scene(device)
+    if not isinstance(f32, kernels.KernelScene):
+        raise AssertionError("the big atrium's f32 layout should fit the card's budget")
+    gen = torch.Generator(device=device).manual_seed(0)
+    dispatch = dispatch_rays9(bench_camera().build_sampler((WIDTH, HEIGHT), device), device, gen)
+    part = dispatch[:DISPATCH_SLICE]
+    check("full", "full closest-hit, big-atrium dispatch slice", q, part,
+          lambda: kernels.trace_packets(f32, part, stack_size=ss), "K1", stack_size=ss)
+    n = dispatch.shape[0] * dispatch.shape[2]
+    ms_q = cuda_ms(lambda: kernels_q.trace_packets_q(q, dispatch, stack_size=ss), 5)
+    ms_f = cuda_ms(lambda: kernels.trace_packets(f32, dispatch, stack_size=ss), 5)
+    log("10 k3", f"big-atrium main-path dispatch {tuple(dispatch.shape)} = {n} rays: K3 {ms_q:.3f} ms = "
+        f"{n / ms_q / 1e3:.1f} Mrays/s, K1 {ms_f:.3f} ms = {n / ms_f / 1e3:.1f} Mrays/s")
+    del dispatch, part
+
+    # Lean modes: phase 6's sets through the path-traced atrium's QPTScene.
+    ss = pt_bvh.recommended_stack_size
+    qpt = pt_bvh.quantized_pt_scene(device)
+    bounce = sets["bounce"]
+    check("closest", "lean closest-hit, bounce-1 set", qpt, bounce,
+          lambda: kernels.trace_packets_pt(pt_scene, bounce, stack_size=ss), "K2", lean=True, stack_size=ss)
+    shadow9, live_s = sets["shadow"]
+    check("anyhit", "lean any-hit, NEE shadow set", qpt, shadow9,
+          lambda: kernels.trace_packets_pt(pt_scene, shadow9, stack_size=ss, t_max=W._SHADOW_T_MAX,
+                                           live_packets=live_s, anyhit=True),
+          "K2", lean=True, anyhit=True, stack_size=ss, t_max=W._SHADOW_T_MAX, live_packets=live_s)
+    r9, live_packets, live_rays = sets["wavefront"]
+    ms_q = cuda_ms(lambda: kernels_q.trace_packets_q(qpt, r9, stack_size=ss, live_packets=live_packets, lean=True), 5)
+    ms_f = cuda_ms(lambda: kernels.trace_packets_pt(pt_scene, r9, stack_size=ss, live_packets=live_packets), 5)
+    log("10 k3", f"whole bounce-1 wavefront, {live_rays} live rays: K3 {ms_q:.3f} ms = {live_rays / ms_q / 1e3:.1f} "
+        f"Mrays/s, K2 {ms_f:.3f} ms = {live_rays / ms_f / 1e3:.1f} Mrays/s")
+    return out
+
+
+def reset_q_launches():
+    from minipath_tpu_torch.render import kernels_q
+
+    for mode in kernels_q.trace_packets_q.launches:
+        kernels_q.trace_packets_q.launches[mode] = 0
+
+
+def phase_q_main_path(big, device, smi):
+    """bench.py's bench_big_scene on the port: the parity frame of the big
+    atrium through ``render_frame`` over the quantized layout, against the
+    same frame (same seed, so the same camera rays) over the f32 one."""
+    from minipath_tpu_torch.render import kernels_q
+    from minipath_tpu_torch.render.frame import render_frame
+
+    sampler, _ = frame_inputs(device, WIDTH, HEIGHT)
+    ss = big.recommended_stack_size
+
+    def frame(scene, seed):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = render_frame(scene, sampler, gen, width=WIDTH, height=HEIGHT, spp=SPP, stack_size=ss,
+                           samples_per_packet=32).cpu().numpy()
+        seconds = time.perf_counter() - t0
+        if img.shape != (HEIGHT, WIDTH, 4) or not np.isfinite(img).all() or not (img[..., 3] > 0).any():
+            raise AssertionError(f"parity frame {img.shape} is not finite or has no hit")
+        return img, seconds
+
+    q, f32 = big.quantized_scene(device), big.kernel_scene(device)
+    _, cold = frame(q, 0)
+    reset_q_launches()
+    img_q, warm = frame(q, 1)
+    launches = dict(kernels_q.trace_packets_q.launches)
+    _, cold_f = frame(f32, 0)
+    img_f, warm_f = frame(f32, 1)
+    if launches["full"] == 0:
+        raise AssertionError("the quantized parity frame launched no K3")
+    m_q, m_f = float(img_q[..., 0].mean()), float(img_f[..., 0].mean())
+    shift = (m_q - m_f) / m_f
+    rays = WIDTH * HEIGHT * SPP
+    text = (f"render_frame {WIDTH}x{HEIGHT} @ {SPP} spp, 32 samples per packet, on {smi}: quantized warm "
+            f"{warm:.3f} s = {rays / warm / 1e6:.1f} Mrays/s (cold {cold:.3f} s), K3 launches {launches} | f32 warm "
+            f"{warm_f:.3f} s = {rays / warm_f / 1e6:.1f} Mrays/s (cold {cold_f:.3f} s) | mean value quantized "
+            f"{m_q:.6f} / f32 {m_f:.6f} (shift {shift:+.3e}), alpha coverage {float(img_q[..., 3].mean()):.4f} / "
+            f"{float(img_f[..., 3].mean()):.4f}, pixels within 1e-2 {float((np.abs(img_q - img_f).max(-1) <= 1e-2).mean()):.4f}")
+    if abs(shift) > LAYOUT_MEAN_RTOL:
+        raise AssertionError(f"the quantized frame's mean is off the f32 frame's: {text}")
+    log("11 q main path", text)
+    return launches
+
+
+def phase_q_pt(big, pt_bvh, dicts, device, smi, f32_mean):
+    """The path tracer over the quantized layout: bench.py's bench_pt_big,
+    then phase 7's NEE-capped frame over the path-traced atrium's QPTScene,
+    then phase 8's Sobol frame on the card and the CPU."""
+    from minipath_tpu_torch.render import kernels_q
+    from minipath_tpu_torch.render.wavefront import make_pt_tracer
+    from minipath_tpu_torch.scene.materials import lambertian, material_table
+
+    table = material_table([lambertian((0.73, 0.73, 0.73))], device)
+
+    def big_parts(scene):
+        tracer, _ = make_pt_tracer(scene, stack_size=big.recommended_stack_size, packet_size=PT_PACKET)
+        return scene, table, None, tracer, None
+
+    # The hall is a closed shell and this workload has no emitter, so no
+    # path reaches the sky and the frame is black on either layout: it
+    # measures traversal and the bounce loop, and its check is the f32
+    # frame under the same seed.
+    parts = big_parts(big.quantized_pt_scene(device))
+    w, h, spp = 960, 540, 8
+    _, cold = render_pt(parts, device, w, h, spp, None, spp, seed=60, lit=False)
+    reset_q_launches()
+    img, warm = render_pt(parts, device, w, h, spp, None, spp, seed=61, lit=False)
+    launches = dict(kernels_q.trace_packets_q.launches)
+    img_f, warm_f = render_pt(big_parts(big.pt_scene(device)), device, w, h, spp, None, spp, seed=61, lit=False)
+    if launches["closest"] == 0:
+        raise AssertionError("the big path-traced frame launched no K3")
+    m_q, m_f = float(img[..., :3].mean()), float(img_f[..., :3].mean())
+    text = (f"bench_pt_big: render_frame_pt of the big atrium, grey Lambertian, sky, {w}x{h} @ {spp} spp, "
+            f"{PT_BOUNCES} bounces on {smi}: warm {warm:.3f} s = {w * h * spp / warm / 1e6:.2f} Mpaths/s (cold "
+            f"{cold:.3f} s) | K3 launches {launches} | f32 layout, same seed: {warm_f:.3f} s | image mean "
+            f"{m_q:.6f} / f32 {m_f:.6f}, all finite")
+    if abs(m_q - m_f) > LAYOUT_MEAN_RTOL * abs(m_f) + 1e-6:
+        raise AssertionError(f"the quantized frame's mean is off the f32 frame's: {text}")
+    log("12 q pt", text)
+
+    parts = pt_parts(pt_bvh, dicts, device, quantized=True)
+    reset_q_launches()
+    img, warm = render_pt(parts, device, PT_WIDTH, PT_HEIGHT, PT_SPP, 1, 2, seed=1)
+    nee_launches = dict(kernels_q.trace_packets_q.launches)
+    if nee_launches["closest"] == 0 or nee_launches["anyhit"] == 0:
+        raise AssertionError(f"the NEE frame did not launch K3 in both lean modes: {nee_launches}")
+    m_q = float(img[..., :3].mean())
+    shift = (m_q - f32_mean) / f32_mean
+    text = (f"render_frame_pt {PT_WIDTH}x{PT_HEIGHT} @ {PT_SPP} spp, {PT_BOUNCES} bounces, NEE at depth 1 over "
+            f"the path-traced atrium's QPTScene: warm {warm:.3f} s = {PT_WIDTH * PT_HEIGHT * PT_SPP / warm / 1e6:.2f} "
+            f"Mpaths/s | K3 launches {nee_launches} | image mean {m_q:.5f} against phase 7's {f32_mean:.5f} under "
+            f"the same seed (shift {shift:+.3e})")
+    if abs(shift) > LAYOUT_MEAN_RTOL:
+        raise AssertionError(f"the quantized path-traced frame's mean is off the f32 frame's: {text}")
+    log("12 q pt", text)
+    phase_card_vs_cpu(pt_bvh, dicts, device, quantized=True, phase="12 q pt")
+    return {m: launches[m] + nee_launches[m] for m in launches}
+
+
+def profile_pt_frame(parts, device, out_dir: Path, name="pt"):
     """A ``torch.profiler`` trace of one warm path-traced frame; writes the
-    per-kernel table and a summary by kind to ``out_dir``."""
+    per-kernel table and a summary by kind to ``out_dir`` as
+    ``profile_<name>.txt`` and ``profile_<name>.json``."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -564,20 +860,24 @@ def profile_pt_frame(parts, device, out_dir: Path):
             continue
         dur = evt.time_range.end - evt.time_range.start
         intervals.append((evt.time_range.start, evt.time_range.end))
-        name = evt.name
-        if "traverse_kernel<true, false>" in name:
+        kernel = evt.name
+        if "traverse_kernel<true, false>" in kernel:
             kind = "K2 closest-hit"
-        elif "traverse_kernel<true, true>" in name:
+        elif "traverse_kernel<true, true>" in kernel:
             kind = "K2 any-hit"
-        elif "sort" in name.lower() or "radix" in name.lower() or "cub::" in name:
+        elif "traverse_q_kernel<true, false>" in kernel:
+            kind = "K3 closest-hit"
+        elif "traverse_q_kernel<true, true>" in kernel:
+            kind = "K3 any-hit"
+        elif "sort" in kernel.lower() or "radix" in kernel.lower() or "cub::" in kernel:
             kind = "sorts"
-        elif "CatArray" in name:
+        elif "CatArray" in kernel:
             kind = "cat copies"
-        elif "index" in name.lower() or "gather" in name.lower() or "scatter" in name.lower():
+        elif "index" in kernel.lower() or "gather" in kernel.lower() or "scatter" in kernel.lower():
             kind = "gathers and scatters"
-        elif "elementwise" in name.lower() or "vectorized" in name.lower() or "reduce" in name.lower():
+        elif "elementwise" in kernel.lower() or "vectorized" in kernel.lower() or "reduce" in kernel.lower():
             kind = "elementwise and reductions"
-        elif "memcpy" in name.lower() or "memset" in name.lower():
+        elif "memcpy" in kernel.lower() or "memset" in kernel.lower():
             kind = "copies and fills"
         else:
             kind = "other"
@@ -594,20 +894,20 @@ def profile_pt_frame(parts, device, out_dir: Path):
     span = (max(b for _, b in intervals) - min(a for a, _ in intervals)) if intervals else 0.0
     out_dir.mkdir(parents=True, exist_ok=True)
     table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=60)
-    (out_dir / "profile_pt.txt").write_text(table)
+    (out_dir / f"profile_{name}.txt").write_text(table)
     summary = {
         "frame_s": seconds, "device_span_ms": span / 1e3, "device_busy_ms": busy / 1e3,
         "idle_share": 1.0 - busy / span if span else None,
         "by_kind_ms": {k: v / 1e3 for k, v in sorted(kinds.items(), key=lambda kv: -kv[1])},
     }
-    (out_dir / "profile_pt.json").write_text(json.dumps(summary, indent=1))
-    log("profile", json.dumps(summary))
+    (out_dir / f"profile_{name}.json").write_text(json.dumps(summary, indent=1))
+    log(f"profile {name}", json.dumps(summary))
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description="Smoke test of minipath_tpu_torch on one NVIDIA GPU.")
     parser.add_argument("--profile", type=Path, default=None, metavar="DIR",
-                        help="also profile one warm path-traced frame and write the summary to DIR")
+                        help="also profile one warm path-traced frame on each layout and write the summaries to DIR")
     args = parser.parse_args()
     smi = phase_device()
     phase_build()
@@ -627,33 +927,39 @@ def main() -> int:
 
     pt_bvh, dicts = build_pt_atrium()
     parts = pt_parts(pt_bvh, dicts, device)
-    k2 = phase_k2(pt_bvh, parts, device)
-    k2_launches = phase_pt_main_path(parts, device, smi)
+    k2, sets = phase_k2(pt_bvh, parts, device)
+    k2_launches, pt_mean = phase_pt_main_path(parts, device, smi)
     phase_card_vs_cpu(pt_bvh, dicts, device)
     phase_pt_cli()
     if args.profile is not None:
         profile_pt_frame(parts, device, args.profile)
+
+    big = build_big_atrium(device)
+    k3 = phase_k3(big, pt_bvh, parts[0], sets, device)
+    del sets
+    q_launches = phase_q_main_path(big, device, smi)
+    for mode, n in phase_q_pt(big, pt_bvh, dicts, device, smi, pt_mean).items():
+        q_launches[mode] += n
+    if args.profile is not None:
+        profile_pt_frame(pt_parts(pt_bvh, dicts, device, quantized=True), device, args.profile, name="pt_q")
+
+    def entry(name, source, replaces, launches, results, key, **extra):
+        r = results[key]
+        return {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
+            "max_abs_err": max(x["err"] for x in results.values()), "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None,  # no PyTorch call traverses a BVH
+            **extra,
+        }
+
     print(json.dumps({"kernels": [
-        {
-            "name": "traverse",
-            "route": "cuda",
-            "source": "minipath_tpu_torch/csrc/traverse.cu",
-            "replaces": "minipath_tpu/render/pallas_kernels.py:165",
-            "launches": launches,
-            "max_abs_err": max(r["err"] for r in kernel.values()),
-            "ms": kernel["dispatch slice"]["ms"],
-            "plain_ms": kernel["dispatch slice"]["plain_ms"],
-        },
-        {
-            "name": "traverse_pt",
-            "route": "cuda",
-            "source": "minipath_tpu_torch/csrc/traverse.cu",
-            "replaces": "minipath_tpu/render/pallas_kernels.py:1375",
-            "launches": k2_launches,
-            "max_abs_err": max(r["err"] for r in k2.values()),
-            "ms": k2["bounce1"]["ms"],
-            "plain_ms": k2["bounce1"]["plain_ms"],
-        },
+        entry("traverse", "minipath_tpu_torch/csrc/traverse.cu", "minipath_tpu/render/pallas_kernels.py:165",
+              launches, kernel, "dispatch slice"),
+        entry("traverse_pt", "minipath_tpu_torch/csrc/traverse.cu", "minipath_tpu/render/pallas_kernels.py:1375",
+              k2_launches, k2, "bounce1"),
+        entry("traverse_q", "minipath_tpu_torch/csrc/traverse_q.cu", "minipath_tpu/render/pallas_kernels.py:650",
+              sum(q_launches.values()), k3, "full", launches_by_mode=q_launches),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -2,7 +2,8 @@
 
 A port of the JAX/Pallas package ``minipath_tpu`` to PyTorch, with the
 traversal kernels written by hand in CUDA C++ for NVIDIA Hopper
-(``csrc/traverse.cu``). It keeps the JAX package's module layout and public
+(``csrc/traverse.cu`` over the f32 layout, ``csrc/traverse_q.cu`` over the
+16-bit quantized one). It keeps the JAX package's module layout and public
 API: ``render``, ``RenderProgress``, ``RenderSettings``, ``Camera``,
 ``Scene``, ``TriangleBvh``, ``ScreenBlock``, and the path tracer
 ``render_frame_pt`` with its materials. Device code takes an explicit
@@ -10,12 +11,15 @@ API: ``render``, ``RenderProgress``, ``RenderSettings``, ``Camera``,
 imports JAX.
 
 Ported so far: the parity render path (grayscale ``|d.n|`` shading, the
-CLI's ``--integrator normal``) and the wavefront path tracer (materials,
-next-event estimation with MIS, roulette, compaction; ``--integrator pt``).
+CLI's ``--integrator normal``), the wavefront path tracer (materials,
+next-event estimation with MIS, roulette, compaction; ``--integrator pt``)
+and the 16-bit quantized scene layout (``QuantizedScene``, ``QPTScene``),
+which ``trace_scene`` and the path tracer's tracers dispatch to by type.
 """
 
 from minipath_tpu_torch.camera import Camera, CameraSampler
 from minipath_tpu_torch.render import RenderProgress, RenderSettings, render
+from minipath_tpu_torch.render.kernels_q import QPTScene, QuantizedScene, trace_scene
 from minipath_tpu_torch.render.wavefront import make_pt_shadow_tracer, make_pt_tracer, render_frame_pt
 from minipath_tpu_torch.scene import Scene
 from minipath_tpu_torch.scene.materials import (
@@ -34,6 +38,8 @@ __all__ = [
     "Camera",
     "CameraSampler",
     "Environment",
+    "QPTScene",
+    "QuantizedScene",
     "RenderProgress",
     "RenderSettings",
     "Scene",
@@ -49,6 +55,7 @@ __all__ = [
     "metal",
     "render",
     "render_frame_pt",
+    "trace_scene",
 ]
 
 __version__ = "0.1.0"

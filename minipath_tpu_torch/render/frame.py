@@ -16,7 +16,8 @@ from __future__ import annotations
 import torch
 
 from minipath_tpu_torch.camera import CameraSampler, sample_rays
-from minipath_tpu_torch.render.kernels import KernelHits, KernelScene, rays_to_rays9, trace_packets
+from minipath_tpu_torch.render.kernels import KernelHits, KernelScene, rays_to_rays9
+from minipath_tpu_torch.render.kernels_q import QuantizedScene, trace_scene
 
 # Dimension-salt base for the camera's film/lens strata, clear of the
 # per-bounce salts a path tracer uses (8 per bounce).
@@ -128,7 +129,7 @@ def shade_parity_sum(rays9: torch.Tensor, kh: KernelHits, samples: int) -> torch
 
 
 def render_frame(
-    scene: KernelScene,
+    scene: KernelScene | QuantizedScene,
     sampler: CameraSampler,
     generator: torch.Generator | None,
     *,
@@ -170,7 +171,7 @@ def render_frame(
             strat_offset=done,
             strat_seed=strat_seed,
         )
-        kh = trace_packets(scene, rays9, stack_size=stack_size)
+        kh = trace_scene(scene, rays9, stack_size=stack_size)
         part = shade_parity_sum(rays9, kh, n)
         acc = part if acc is None else acc + part
         done += n

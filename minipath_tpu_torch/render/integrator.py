@@ -14,7 +14,8 @@ import torch
 
 from minipath_tpu_torch.camera import CameraSampler, sample_rays
 from minipath_tpu_torch.render.frame import CAMERA_SALT, shade_parity_sum
-from minipath_tpu_torch.render.kernels import KernelScene, rays_to_rays9, trace_packets
+from minipath_tpu_torch.render.kernels import KernelScene, rays_to_rays9
+from minipath_tpu_torch.render.kernels_q import QuantizedScene, trace_scene
 
 
 def tile_pixel_packets(tile_origin, tile_shape, packet_shape, device) -> torch.Tensor:
@@ -84,7 +85,7 @@ def tile_batch_rays9(
 
 
 def render_tile_batch_bvh(
-    scene: KernelScene,
+    scene: KernelScene | QuantizedScene,
     sampler: CameraSampler,
     tile_origins: torch.Tensor,  # (K, 2) f32 pixel origins
     generator: torch.Generator,
@@ -103,6 +104,6 @@ def render_tile_batch_bvh(
         tile_shape=tile_shape, packet_shape=packet_shape, spp=spp,
     )
     nb, bp = rays9.shape[0] // K, rays9.shape[2] // spp
-    kh = trace_packets(scene, rays9, stack_size=stack_size)
+    kh = trace_scene(scene, rays9, stack_size=stack_size)
     rgba_sum = shade_parity_sum(rays9, kh, spp)  # (K*nb, bp, 4)
     return unpack_tile(rgba_sum.reshape(K, nb, bp, 4), tile_shape, packet_shape)

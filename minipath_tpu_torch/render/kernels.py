@@ -381,6 +381,18 @@ def _raise_on(lib, err: int) -> None:
         )
 
 
+def _live_count(live_packets, dev) -> torch.Tensor | None:
+    """``live_packets`` (None, an int or a one-element tensor on ``dev``) as
+    the one ``int32`` in device memory that the kernels read, or None."""
+    if live_packets is None:
+        return None
+    if isinstance(live_packets, torch.Tensor):
+        if live_packets.numel() != 1 or live_packets.device != dev:
+            raise ValueError(f"live_packets must be one element on {dev}")
+        return live_packets.reshape(1).to(torch.int32).contiguous()
+    return torch.full((1,), int(live_packets), dtype=torch.int32, device=dev)
+
+
 def _aligned(*tensors) -> None:
     for a in tensors:
         if a.data_ptr() % 16:
@@ -435,14 +447,7 @@ def _launch_pt(scene, rays9, stack_size, t_max, live_packets, anyhit, roots) -> 
     B, _, P = rays9.shape
     dev = rays9.device
     _aligned(scene.node_box, scene.node_links, scene.tri_data, rays9)
-    live = None
-    if live_packets is not None:
-        if isinstance(live_packets, torch.Tensor):
-            if live_packets.numel() != 1 or live_packets.device != dev:
-                raise ValueError(f"live_packets must be one element on {dev}")
-            live = live_packets.reshape(1).to(torch.int32).contiguous()
-        else:
-            live = torch.full((1,), int(live_packets), dtype=torch.int32, device=dev)
+    live = _live_count(live_packets, dev)
     if roots is not None:
         roots = roots.to(torch.int32).contiguous()
     t = torch.empty((B, P), dtype=torch.float32, device=dev)
@@ -479,7 +484,7 @@ def _launch_pt(scene, rays9, stack_size, t_max, live_packets, anyhit, roots) -> 
     )
 
 
-def _traverse_reference(scene, rays9, *, stack_size, t_max, live_packets, anyhit=False, roots=None):
+def _traverse_reference(scene, rays9, *, stack_size, t_max, live_packets, anyhit=False, roots=None, touched=None):
     """The plain version of the traversal loop both kernels share.
 
     A per-ray lockstep traversal after ``minipath_tpu/render/traversal.py``:
@@ -493,7 +498,9 @@ def _traverse_reference(scene, rays9, *, stack_size, t_max, live_packets, anyhit
 
     ``live_packets`` is None, an int or a one-element tensor; ``roots`` an
     optional ``(B,)`` tensor. Returns per-ray ``(t, tri, u, v)`` and the
-    per-packet ``(overflow, inner_visits, leaf_tests)``.
+    per-packet ``(overflow, inner_visits, leaf_tests)``. A dict given as
+    ``touched`` receives boolean masks of the node rows (``"nodes"``) and
+    triangle packets (``"packets"``) the traversal read.
     """
     B, _, P = rays9.shape
     dev = rays9.device
@@ -530,6 +537,9 @@ def _traverse_reference(scene, rays9, *, stack_size, t_max, live_packets, anyhit
     node_box = scene.node_box.view(-1, 8, 6)
     node_links = scene.node_links.to(i64)
     tri_rows = scene.tri_data[:, :72].reshape(-1, 8, 9)
+    if touched is not None:
+        touched["nodes"] = torch.zeros(node_links.shape[0], dtype=torch.bool, device=dev)
+        touched["packets"] = torch.zeros(tri_rows.shape[0], dtype=torch.bool, device=dev)
 
     while True:
         act = torch.nonzero(sp > 0).squeeze(1)
@@ -548,6 +558,8 @@ def _traverse_reference(scene, rays9, *, stack_size, t_max, live_packets, anyhit
         a, n = act[inner], idx[inner]
         if a.numel():
             ivis[a] += 1
+            if touched is not None:
+                touched["nodes"][n] = True
             box = node_box[n]  # (k, 8, 6)
             clinks = node_links[n]  # (k, 8)
             oa, ia = o[a][:, None, :], inv[a][:, None, :]
@@ -584,6 +596,8 @@ def _traverse_reference(scene, rays9, *, stack_size, t_max, live_packets, anyhit
                     m &= best_tri[a] < 0
                 if not bool(m.any()):
                     break
+                if touched is not None:
+                    touched["packets"][first[m] + j] = True
                 _leaf_packet(tri_rows, first[m] + j, a[m], o, d, best_t, best_tri, best_u, best_v)
             if anyhit:
                 sp[a[best_tri[a] >= 0]] = 0

@@ -1,7 +1,8 @@
 """Wavefront path tracer.
 
 Port of ``minipath_tpu/render/wavefront.py``: per-bounce structure-of-arrays
-ray queues over the lean traversal kernel (K2, ``render/kernels.py``), masked
+ray queues over the lean traversal kernel (K2, ``render/kernels.py``, or K3
+in lean mode over a quantized ``QPTScene``, ``render/kernels_q.py``), masked
 BSDF sampling (Lambertian, metal with a Phong lobe, dielectric, emissive),
 next-event estimation with the MIS power heuristic, Russian roulette, and a
 sort-based compaction that moves dead paths to a suffix and regroups live
@@ -30,7 +31,8 @@ import torch
 
 from minipath_tpu_torch.camera import CameraSampler
 from minipath_tpu_torch.render.frame import gen_frame_rays9, unpack_frame
-from minipath_tpu_torch.render.kernels import KernelHits, PTScene, trace_packets_pt
+from minipath_tpu_torch.render.kernels import KernelHits, PTHits, PTScene, trace_packets_pt
+from minipath_tpu_torch.render.kernels_q import QPTScene, trace_packets_q
 from minipath_tpu_torch.render.stratify import render_seed, strat1d, strat2d
 from minipath_tpu_torch.scene.materials import (
     DIELECTRIC,
@@ -242,20 +244,31 @@ def shade_from_flat(shade_flat, tri, u, v):
     return normal, row[:, 9].to(torch.int32), tex
 
 
-def make_pt_tracer(scene: PTScene, *, stack_size: int, packet_size: int = 2048):
-    """Closest-hit tracer over the lean trace (K2): the kernel returns
-    ``(t, tri, u, v)``, and the normal, material and texture coordinates
-    come from one row gather of ``scene.shade_flat``.
+def _trace_pt_any(state, r9, *, stack_size, live_packets, t_max=np.inf, anyhit=False) -> PTHits:
+    """Dispatch a lean trace by scene type: K3 in lean mode over a
+    :class:`QPTScene`, K2 over a :class:`PTScene`; both return the same
+    :class:`PTHits` contract."""
+    kw = dict(stack_size=stack_size, t_max=t_max, live_packets=live_packets, anyhit=anyhit)
+    if isinstance(state, QPTScene):
+        return trace_packets_q(state, r9, lean=True, **kw)
+    return trace_packets_pt(state, r9, **kw)
+
+
+def make_pt_tracer(scene: PTScene | QPTScene, *, stack_size: int, packet_size: int = 2048):
+    """Closest-hit tracer over the lean trace (K2, or K3 over a
+    :class:`QPTScene`): the kernel returns ``(t, tri, u, v)``, and the
+    normal, material and texture coordinates come from one row gather of
+    ``scene.shade_flat``.
 
     Returns ``(tracer, scene)``; ``tracer(scene, origin, direction,
     inv_direction, live_rays=None) -> KernelHits`` over ``(N, 3)`` rays,
     where ``live_rays`` (an int or a device tensor) marks a live prefix.
     """
 
-    def tracer(state: PTScene, origin, direction, inv_direction, live_rays=None) -> KernelHits:
+    def tracer(state: PTScene | QPTScene, origin, direction, inv_direction, live_rays=None) -> KernelHits:
         N = origin.shape[0]
         r9, live_packets, Np = _pack_rays9(packet_size, live_rays, origin, direction, inv_direction)
-        ph = trace_packets_pt(state, r9, stack_size=stack_size, live_packets=live_packets)
+        ph = _trace_pt_any(state, r9, stack_size=stack_size, live_packets=live_packets)
         tri = ph.tri.reshape(Np)[:N]
         normal, material, tex = shade_from_flat(
             state.shade_flat, tri, ph.u.reshape(Np)[:N], ph.v.reshape(Np)[:N]
@@ -282,17 +295,18 @@ def make_pt_tracer(scene: PTScene, *, stack_size: int, packet_size: int = 2048):
 _SHADOW_T_MAX = 1.0 - 1e-5
 
 
-def make_pt_shadow_tracer(scene: PTScene, *, stack_size: int, packet_size: int = 2048):
-    """Occlusion tracer over the lean trace in any-hit mode. Returns
+def make_pt_shadow_tracer(scene: PTScene | QPTScene, *, stack_size: int, packet_size: int = 2048):
+    """Occlusion tracer over the lean trace in any-hit mode (K2, or K3 over a
+    :class:`QPTScene`). Returns
     ``(shadow, scene)``; ``shadow(scene, origin, segment, live_rays=None) ->
     (N,) bool`` is True where something blocks ``origin -> origin +
     segment``."""
 
-    def shadow(state: PTScene, origin, segment, live_rays=None):
+    def shadow(state: PTScene | QPTScene, origin, segment, live_rays=None):
         N = origin.shape[0]
         inv = torch.where(segment == 0.0, torch.full_like(segment, torch.inf), 1.0 / segment)
         r9, live_packets, Np = _pack_rays9(packet_size, live_rays, origin, segment, inv)
-        ph = trace_packets_pt(
+        ph = _trace_pt_any(
             state, r9, stack_size=stack_size, t_max=_SHADOW_T_MAX, live_packets=live_packets, anyhit=True
         )
         return ph.tri.reshape(Np)[:N] >= 0

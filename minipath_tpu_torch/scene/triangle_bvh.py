@@ -6,9 +6,15 @@ Public surface mirrors the reference
 ``statistics``/``print_statistics``. The host-side build
 (``bvh/build.py``) does the heavy lifting; :meth:`TriangleBvh.kernel_scene`
 and :meth:`TriangleBvh.pt_scene` lay the arrays out for the traversal
-kernels on a chosen device. A card holds
-the whole scene in its device memory, so there is one kernel layout (f32) and
-no fallback between layouts.
+kernels on a chosen device.
+
+Two layouts exist: f32 (K1, K2) and the 16-bit quantized one (K3, about
+half the bytes). ``kernel_scene`` and ``pt_scene`` take the f32 layout unless
+its bytes exceed :data:`SCENE_BUDGET_BYTES`, as the JAX package's
+``TriangleBvh.pallas_scene`` does against its VMEM budget; the choice is
+made from the array shapes, before either layout is built, and an error in
+the chosen layout raises instead of falling back. ``quantized_scene`` and
+``quantized_pt_scene`` ask for the quantized layout outright.
 """
 
 from __future__ import annotations
@@ -20,6 +26,18 @@ from minipath_tpu_torch.geometry.aabb import AABB
 from minipath_tpu_torch.scene.bvh.build import BuildResult, BvhArrays, build_bvh
 from minipath_tpu_torch.scene.obj_loader import MeshData, load_obj
 
+# Bytes the f32 layout may take before the quantized one replaces it. None
+# means half the card's device memory, and no limit on the CPU.
+SCENE_BUDGET_BYTES: int | None = None
+
+
+def _budget(device: torch.device) -> int | None:
+    if SCENE_BUDGET_BYTES is not None:
+        return SCENE_BUDGET_BYTES
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).total_memory // 2
+    return None
+
 
 class TriangleBvh:
     """Host handle owning the flat BVH arrays of a triangle mesh."""
@@ -29,6 +47,7 @@ class TriangleBvh:
         self._device_arrays: dict[torch.device, BvhArrays] = {}
         self._kernel_scenes: dict = {}
         self._pt_scenes: dict = {}
+        self._quantized_scenes: dict = {}
 
     # -- constructors -----------------------------------------------------------
 
@@ -51,26 +70,71 @@ class TriangleBvh:
             self._device_arrays[device] = self._build.as_device(device)
         return self._device_arrays[device]
 
+    def f32_scene_bytes(self, pt: bool = False) -> int:
+        """Bytes of the f32 layout: node rows of 48 + 8 words and triangle
+        rows of 80 words, plus K1's 72-word normal rows or, for the path
+        tracer, the 8 x 20 f16 shading rows of each packet."""
+        N = self._build.arrays.node_child_links.shape[0]
+        M = self._build.arrays.tri_packets.shape[0]
+        return N * (48 + 8) * 4 + M * (80 * 4 + (8 * 20 * 2 if pt else 72 * 4))
+
+    def _quantized(self, device: torch.device, pt: bool) -> bool:
+        budget = _budget(device)
+        return budget is not None and self.f32_scene_bytes(pt) > budget
+
     def kernel_scene(self, device):
-        """Traversal-kernel layout on ``device`` (cached; see
-        ``render/kernels.py::prepare_scene``)."""
+        """Closest-hit layout on ``device`` (cached): the f32
+        ``KernelScene`` (``render/kernels.py::prepare_scene``), or the
+        :meth:`quantized_scene` where the f32 one exceeds the budget."""
         from minipath_tpu_torch.render.kernels import prepare_scene
 
         device = torch.device(device)
+        if self._quantized(device, pt=False):
+            return self.quantized_scene(device)
         if device not in self._kernel_scenes:
             self._kernel_scenes[device] = prepare_scene(self.arrays(device))
         return self._kernel_scenes[device]
 
     def pt_scene(self, device):
-        """Lean path-tracing layout on ``device`` (cached; see
-        ``render/kernels.py::prepare_scene_pt``). One layout, f32, with no
-        fallback: material ids are checked before it is built."""
-        from minipath_tpu_torch.render.kernels import prepare_scene_pt
+        """Lean path-tracing layout on ``device`` (cached): the f32
+        ``PTScene`` (``render/kernels.py::prepare_scene_pt``), or the
+        :meth:`quantized_pt_scene` where the f32 one exceeds the budget.
+        Material ids are checked before either is built."""
+        from minipath_tpu_torch.render.kernels import check_material_ids, prepare_scene_pt
 
         device = torch.device(device)
+        check_material_ids(self.arrays(device).tri_material)
+        if self._quantized(device, pt=True):
+            return self.quantized_pt_scene(device)
         if device not in self._pt_scenes:
             self._pt_scenes[device] = prepare_scene_pt(self.arrays(device))
         return self._pt_scenes[device]
+
+    def quantized_scene(self, device):
+        """The 16-bit quantized layout for K3 on ``device`` (cached; see
+        ``render/kernels_q.py::prepare_scene_quantized``). A scene built with
+        spatial splits, or with material ids above 65535, raises
+        ``ValueError``."""
+        from minipath_tpu_torch.render.kernels_q import prepare_scene_quantized
+
+        device = torch.device(device)
+        if device not in self._quantized_scenes:
+            self._quantized_scenes[device] = prepare_scene_quantized(self.host_arrays, device)
+        return self._quantized_scenes[device]
+
+    def quantized_pt_scene(self, device):
+        """The quantized lean path-tracing layout (``QPTScene``) on
+        ``device``: :meth:`quantized_scene`'s rows plus the f16 shading
+        table, which is built, and its material ids checked, first."""
+        from minipath_tpu_torch.render.kernels import build_shade_flat
+        from minipath_tpu_torch.render.kernels_q import QPTScene
+
+        device = torch.device(device)
+        key = (device, "pt")
+        if key not in self._quantized_scenes:
+            shade_flat = build_shade_flat(self.arrays(device))
+            self._quantized_scenes[key] = QPTScene(*self.quantized_scene(device), shade_flat=shade_flat)
+        return self._quantized_scenes[key]
 
     @property
     def host_arrays(self) -> BvhArrays:

@@ -1,8 +1,9 @@
 """Build a CUDA source of the package into a shared library and load it.
 
 The kernels have a plain C interface (pointers, ints and the stream), so
-they are compiled by ``nvcc`` alone, without PyTorch's headers, into
-``minipath_tpu_torch/_build/`` and loaded with ``ctypes``. A build is keyed
+each source (``csrc/traverse.cu``, ``csrc/traverse_q.cu``) is compiled by
+``nvcc`` alone, without PyTorch's headers, into a library of its own in
+``minipath_tpu_torch/_build/``, and loaded with ``ctypes``. A build is keyed
 on a hash of the source and the flags: an unchanged source is built once per
 checkout, at its first use. The target is Hopper (``sm_90a``).
 """
@@ -50,6 +51,7 @@ class CudaLibrary:
 
 
 _libraries: dict[Path, CudaLibrary] = {}
+_locks: dict[Path, threading.Lock] = {}
 _lock = threading.Lock()
 
 
@@ -66,9 +68,12 @@ def _nvcc() -> str:
 
 
 def load_cuda_library(source: Path) -> CudaLibrary:
-    """Compile ``source`` (if its build is missing) and load it."""
+    """Compile ``source`` (if its build is missing) and load it. Each source
+    has its own lock, so that threads build different sources at once."""
     source = Path(source).resolve()
     with _lock:
+        lock = _locks.setdefault(source, threading.Lock())
+    with lock:
         if source in _libraries:
             return _libraries[source]
         digest = hashlib.sha256(

@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (``minipath_tpu_torch``) on one NVIDIA GPU.
 
-Run from the root of a checkout: ``python3 chip_smoke.py``. Twelve phases,
+Run from the root of a checkout: ``python3 chip_smoke.py``. Thirteen phases,
 each printing its lines as it finishes; any failure raises and the script
 exits non-zero. There is no CPU path: without a CUDA device it fails at once.
 
 1. Device: the card's name and power limit.
-2. Build: compiles both traversal sources (``csrc/traverse.cu``: K1, K2;
-   ``csrc/traverse_q.cu``: K3) with nvcc, the two at once, and prints what
-   ptxas says of each kernel (registers, stack frame, spills).
+2. Build: compiles the three CUDA sources (``csrc/traverse.cu``: K1, K2;
+   ``csrc/traverse_q.cu``: K3; ``csrc/chain.cu``: K4, K5) with nvcc, all at
+   once, and prints what ptxas says of each kernel (registers, stack frame,
+   spills) and the chain kernels' multiplies and min/max in the SASS.
 3. Kernel against its plain PyTorch version on the card, on the
    249,284-triangle procedural atrium: 16,384 coherent camera rays from the
    benchmark camera, 16,384 incoherent rays inside the atrium, and the first
@@ -55,14 +56,24 @@ on bench.py's Sponza-scale atrium (``make_atrium(600_000)``, leaves of up to
     its mean within 1% of phase 7's under the same seed; phase 8's Sobol
     frame on ``QPTScene``, card against CPU.
 
+13. The chain kernels and the benchmark entry point: K4 (``csrc/chain.cu``,
+    the device-health probe's chain) against its plain version bit for bit
+    at (512, 128) x 1, 7, 64 and 65,536 iterations; K5 in float32 and
+    bfloat16 at the tool's (256, 128) x 256 and at a card-filling (16384,
+    128) x 4096, bit for bit, with times and bounds; ``device_health`` on the
+    card (K4 launches counted), the bf16 tool's ``main`` (K5 launches
+    counted); then ``python -m minipath_tpu_torch.bench --device cuda`` in a
+    subprocess under a time budget, which must exit 0, print every rung's
+    line and end with the JAX bench's keys.
+
 ``python3 chip_smoke.py --profile DIR`` also writes a ``torch.profiler``
 summary of one warm path-traced frame to DIR, over the f32 layout (after
 phase 9) and over the quantized one (after phase 12).
 
 The line before the last is a JSON object describing each kernel (its time,
 its plain version's time, its launches on the main path and its bound: the
-larger of its float32 operations over the card's FP32 peak and its bytes
-over the HBM rate); the last line is ``{"ok": true, "device": {...}}``.
+larger of its operations over the card's peak rate for their type and its
+bytes over the HBM rate); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -71,6 +82,7 @@ import argparse
 import functools
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -194,18 +206,44 @@ def phase_device():
 
 
 def phase_build():
-    """Both sources at once, one nvcc each."""
+    """The three sources at once, one nvcc each."""
     from concurrent.futures import ThreadPoolExecutor
 
     from minipath_tpu_torch.render import kernels, kernels_q
+    from minipath_tpu_torch.utils import calibrate
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        libs = [f.result() for f in [pool.submit(kernels.load_library), pool.submit(kernels_q.load_library)]]
+    loaders = (kernels.load_library, kernels_q.load_library, calibrate.load_library)
+    with ThreadPoolExecutor(len(loaders)) as pool:
+        libs = [f.result() for f in [pool.submit(load) for load in loaders]]
     for built in libs:
         regs = [ln.strip() for ln in built.log.splitlines() if "registers" in ln or "spill" in ln]
         log("2 build", f"{built.path.name} nvcc {built.build_seconds:.2f}s | {' | '.join(regs)}")
-    log("2 build", f"both built and loaded in {time.perf_counter() - t0:.2f}s")
+    log("2 build", f"all three built and loaded in {time.perf_counter() - t0:.2f}s")
+    log("2 build", f"chain kernels' SASS: {json.dumps(chain_sass_counts(libs[2].path))}")
+
+
+def chain_sass_counts(library: Path) -> dict:
+    """Multiplies (``HFMA2`` with a zero addend is one) and min/max of each
+    chain kernel in the built library's SASS (``cuobjdump -sass``): the
+    loop's body as the compiler unrolled it, its remainder loops and the few
+    instructions before them."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = Path(CUDA_HOME or "/usr/local/cuda") / "bin" / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(library)], capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            name = "bf16x2" if "nv_bfloat162" in name else "f32"
+            counts[name] = {}
+        elif name is not None:
+            for op in ("FMUL", "FMNMX", "HMUL2", "HFMA2", "HMNMX2"):
+                if re.search(rf"\b{op}\b", line):
+                    counts[name][op] = counts[name].get(op, 0) + 1
+    return counts
 
 
 def dispatch_rays9(sampler, device, generator):
@@ -845,6 +883,158 @@ def phase_q_pt(big, pt_bvh, dicts, device, smi, f32_mean):
     return {m: launches[m] + nee_launches[m] for m in launches}
 
 
+# Phase 13: the chain kernels' checks and shapes. K4 at the device-health
+# probe's shape; K5 at the bf16 tool's default and at a card-filling shape.
+CHAIN_CHECK_ITERS = (1, 7, 64, 65536)
+K5_SHAPES = {"default": ((256, 128), 256), "card-filling": ((16384, 128), 4096)}
+# One element and iteration of the chain executes two multiplies and a min and
+# a max (``a * 0.5`` is hoisted), and the SASS holds them as FMUL and FMNMX
+# (f32) or HMUL2/HFMA2 and HMNMX2 (bf16x2, two elements a lane). Results per
+# clock and SM on compute capability 9.0 (the CUDA C++ Programming Guide's
+# throughput table): 128 for a float32 multiply, 64 for compare, minimum and
+# maximum; 256 for a 16-bit multiply. No rate is listed for HMNMX2: taken as
+# twice FMNMX's, two results a lane.
+CHAIN_MULS, CHAIN_MINMAX, SMS = 2, 2, 132
+CHAIN_RATES = {torch.float32: (128, 64), torch.bfloat16: (256, 128)}  # (multiply, min/max)
+BENCH_BUDGET_S, BENCH_TIMEOUT_S = 420, 600
+# The last line of the JAX bench (bench.py:587-611), all rungs run.
+JAX_BENCH_KEYS = [
+    "metric", "value", "unit", "vs_baseline", "pt_wavefront_mpaths_per_s", "pt_nee_mpaths_per_s",
+    "pt_nee_capped_mpaths_per_s", "pt_1080p64_wavefront_s", "pt_1080p64_wavefront_mpaths_per_s",
+    "pt_1080p64_nee_capped_s", "pt_1080p64_nee_capped_mpaths_per_s", "pt_big_scene_mpaths_per_s",
+]
+
+
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
+
+
+def chain_bound(shape, iters, dtype, clock_hz):
+    """The least time of one chain call, as ``(ms, "operations" or
+    "bytes", text)``: its multiplies and min/max at the card's documented
+    rates for them at the maximum SM clock, against its input read once and
+    its output written once over the HBM rate."""
+    n = shape[0] * shape[1]
+    mul_rate, minmax_rate = CHAIN_RATES[dtype]
+    clocks = n * iters * (CHAIN_MULS / mul_rate + CHAIN_MINMAX / minmax_rate) / SMS
+    lane_ops = n * iters * (CHAIN_MULS + CHAIN_MINMAX)
+    nbytes = 2 * n * (4 if dtype == torch.float32 else 2)
+    op_ms, byte_ms = clocks / clock_hz * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    by = "operations" if op_ms >= byte_ms else "bytes"
+    text = (f"bound {max(op_ms, byte_ms):.5f} ms by {by} ({lane_ops / 1e9:.3f} G multiplies and min/max = "
+            f"{op_ms:.5f} ms; {nbytes / 1e6:.3f} MB = {byte_ms:.5f} ms)")
+    return max(op_ms, byte_ms), by, text
+
+
+def check_chain(label, shape, dtype, iters, device, clock_hz, reps=20):
+    """One chain kernel call against its plain version on the same input,
+    bit for bit; returns its times and bound."""
+    from minipath_tpu_torch.utils import calibrate
+
+    x = calibrate.chain_input(shape, dtype, device)
+    got = calibrate.vpu_chain(x, iters)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = calibrate.vpu_chain_reference(x, iters)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    equal = torch.equal(got.view(bits), want.view(bits))
+    err = (got.float() - want.float()).abs().max().item()
+    ms = cuda_ms(lambda: calibrate.vpu_chain(x, iters), reps)
+    bound_ms, bound_by, bound = chain_bound(shape, iters, dtype, clock_hz)
+    text = (f"{label} {str(dtype).removeprefix('torch.')} {shape} x {iters}: bit for bit {equal}, max abs err "
+            f"{err:.3g}, kernel {ms:.5f} ms, plain {plain_ms:.2f} ms | {bound} | kernel at "
+            f"{bound_ms / ms:.1%} of it")
+    if not equal or not torch.isfinite(got.float()).all():
+        raise AssertionError(f"the chain kernel disagrees with its plain version: {text}")
+    log("13 chain", text)
+    return dict(ms=ms, plain_ms=plain_ms, err=err, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_chain(device, smi):
+    """K4 and K5 against their plain version, then their main paths:
+    ``device_health`` (K4) and the bf16 tool (K5), launches counted."""
+    import contextlib
+    import io
+
+    from minipath_tpu_torch.tools import microbench_vpu_bf16 as tool
+    from minipath_tpu_torch.utils import calibrate
+
+    clock = max_sm_clock_hz()
+    log("13 chain", f"max SM clock {clock / 1e9:.3f} GHz on {smi}")
+    k4 = {n: check_chain("K4", calibrate.CHAIN_SHAPE, torch.float32, n, device, clock) for n in CHAIN_CHECK_ITERS}
+    k5 = {}
+    for key, (shape, iters) in K5_SHAPES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            k5[key, dtype] = check_chain(f"K5 {key}", shape, dtype, iters, device, clock)
+    for key in K5_SHAPES:
+        f32, bf16 = k5[key, torch.float32]["ms"], k5[key, torch.bfloat16]["ms"]
+        log("13 chain", f"K5 {key}: bf16 speedup over f32 {f32 / bf16:.3f}x")
+
+    # The wrappers' host time a launch, beside one Path.resolve() (which the
+    # library lookup avoids): what a launch costs where the kernel is short.
+    x = calibrate.chain_input((256, 128), torch.float32, device)
+    host_us = {}
+    for name, fn in (("Path.resolve", calibrate._SOURCE.resolve), ("vpu_chain, 1 iteration",
+                                                                    lambda: calibrate.vpu_chain(x, 1))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn()
+        torch.cuda.synchronize()
+        host_us[name] = round((time.perf_counter() - t0) / 200 * 1e6, 2)
+    log("13 chain", f"host microseconds a call: {json.dumps(host_us)}")
+
+    calibrate.vpu_chain.launches.update(float32=0, bfloat16=0)
+    health = calibrate.device_health("cuda")
+    k4_launches = calibrate.vpu_chain.launches["float32"]
+    missing = [k for k, v in health.items() if v is None]
+    if missing or k4_launches == 0:
+        raise AssertionError(f"device_health: null {missing}, K4 launches {k4_launches}: {health}")
+    log("13 chain", f"device_health on {smi}: {json.dumps(health)} | K4 launches {k4_launches}")
+
+    calibrate.vpu_chain.launches.update(float32=0, bfloat16=0)
+    said = io.StringIO()
+    with contextlib.redirect_stdout(said):
+        rc = tool.main(["--device", "cuda"])
+    k5_launches = dict(calibrate.vpu_chain.launches)
+    if rc != 0 or min(k5_launches.values()) == 0:
+        raise AssertionError(f"the bf16 tool exited {rc} with K5 launches {k5_launches}")
+    log("13 chain", f"tool main: {' | '.join(said.getvalue().splitlines())} | K5 launches {k5_launches}")
+    return k4, k4_launches, k5, k5_launches, health
+
+
+def phase_bench(smi):
+    """``python -m minipath_tpu_torch.bench --device cuda`` under a time
+    budget: exit 0, every rung's line, the JAX bench's keys last."""
+    from minipath_tpu_torch import bench
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        extra = Path(tmp) / "extra.json"
+        cmd = [sys.executable, "-m", "minipath_tpu_torch.bench", "--device", "cuda", "--budget-s",
+               str(BENCH_BUDGET_S), "--out", str(extra)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+        seconds = time.perf_counter() - t0
+        lines = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+        for line in lines:
+            log("13 bench", json.dumps(line))
+        rungs = [ln.get("rung") for ln in lines if "rung" in ln and "error" not in ln]
+        want = [name for name, _ in bench.RUNGS]
+        if proc.returncode != 0 or rungs != want or not lines or list(lines[-1]) != JAX_BENCH_KEYS:
+            raise AssertionError(f"bench exited {proc.returncode}, rungs {rungs}:\n{proc.stderr[-4000:]}")
+        artifact = json.loads(extra.read_text())
+    log("13 bench", f"exit 0 in {seconds:.1f}s on {smi}, every rung's line, last line keys {list(lines[-1])}, "
+        f"artifact keys {list(artifact)}")
+
+
 def profile_pt_frame(parts, device, out_dir: Path, name="pt"):
     """A ``torch.profiler`` trace of one warm path-traced frame; writes the
     per-kernel table and a summary by kind to ``out_dir`` as
@@ -942,6 +1132,9 @@ def main() -> int:
         q_launches[mode] += n
     if args.profile is not None:
         profile_pt_frame(pt_parts(pt_bvh, dicts, device, quantized=True), device, args.profile, name="pt_q")
+    del big, pt_bvh, parts
+    k4, k4_launches, k5, k5_launches, _ = phase_chain(device, smi)
+    phase_bench(smi)
 
     def entry(name, source, replaces, launches, results, key, **extra):
         r = results[key]
@@ -949,10 +1142,13 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
             "max_abs_err": max(x["err"] for x in results.values()), "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": None,  # no PyTorch call traverses a BVH
+            # No PyTorch call traverses a BVH, and no single call computes a
+            # dependent chain.
+            "library_ms": None,
             **extra,
         }
 
+    chain = "minipath_tpu_torch/csrc/chain.cu"
     print(json.dumps({"kernels": [
         entry("traverse", "minipath_tpu_torch/csrc/traverse.cu", "minipath_tpu/render/pallas_kernels.py:165",
               launches, kernel, "dispatch slice"),
@@ -960,6 +1156,11 @@ def main() -> int:
               k2_launches, k2, "bounce1"),
         entry("traverse_q", "minipath_tpu_torch/csrc/traverse_q.cu", "minipath_tpu/render/pallas_kernels.py:650",
               sum(q_launches.values()), k3, "full", launches_by_mode=q_launches),
+        entry("vpu_chain", chain, "minipath_tpu/utils/calibrate.py:44", k4_launches, k4, CHAIN_CHECK_ITERS[-1]),
+        *(entry(f"chain_{short}", chain, "tools/microbench_vpu_bf16.py:24", k5_launches[str(dtype)[6:]],
+                {key: r for (key, d), r in k5.items() if d == dtype}, "default",
+                card_filling=k5["card-filling", dtype])
+          for short, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16))),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

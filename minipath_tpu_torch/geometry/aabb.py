@@ -1,15 +1,21 @@
 """Axis-aligned bounding boxes.
 
-:class:`AABB` is a small generic host-side min/max box over NumPy points of
-any dimension/dtype, used by the BVH builder and by 2-D screen blocks. It
-mirrors the combinator surface of the reference's generic ``AABB``
-(``minipath/src/geometry/aabb.rs:20-252``). The device-side ray/box slab
-test lives inside the traversal kernel (``render/kernels.py``).
+Two layers, as in ``minipath_tpu/geometry/aabb.py``:
+
+* :class:`AABB`, a small generic host-side min/max box over NumPy points of
+  any dimension/dtype, used by the BVH builder and by 2-D screen blocks. It
+  mirrors the combinator surface of the reference's generic ``AABB``
+  (``minipath/src/geometry/aabb.rs:20-252``).
+* :func:`slab_test`, the vectorized ray/box slab test in torch, with the
+  reference's NaN handling for degenerate slabs (``aabb.rs:254-284``). The
+  portable engine (``render/traversal.py``) uses it; the traversal kernels
+  carry their own NaN-free variant (``1/d`` clamped to +-1e30).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 class AABB:
@@ -96,3 +102,24 @@ class AABB:
 
     def __repr__(self) -> str:
         return f"AABB(min={self.min.tolist()}, max={self.max.tolist()})"
+
+
+def slab_test(box_min, box_max, origin, inv_direction, t_clip):
+    """Vectorized ray/AABB slab test.
+
+    Broadcasts over leading dims; the coordinate axis is the last one.
+    Returns ``(t1, t2)`` with the semantics of the reference test
+    (``aabb.rs:254-284``): componentwise distances with NaNs (ray origin on a
+    degenerate slab) replaced by -inf for the near plane and +inf for the far
+    plane, ``t1`` clamped below by 0 and ``t2`` above by ``t_clip`` (a scalar
+    or a broadcastable tensor). The box intersects iff ``t1 <= t2``.
+    """
+    to_min = (box_min - origin) * inv_direction
+    to_max = (box_max - origin) * inv_direction
+    to_min = torch.where(torch.isnan(to_min), -torch.inf, to_min)
+    to_max = torch.where(torch.isnan(to_max), torch.inf, to_max)
+    cmin = torch.minimum(to_min, to_max)
+    cmax = torch.maximum(to_min, to_max)
+    t1 = torch.clamp(cmin.amax(dim=-1), min=0.0)
+    t2 = torch.minimum(cmax.amin(dim=-1), torch.as_tensor(t_clip, dtype=cmax.dtype, device=cmax.device))
+    return t1, t2

@@ -31,7 +31,10 @@ from minipath_tpu_torch.scene.obj_loader import MeshData, load_obj
 SCENE_BUDGET_BYTES: int | None = None
 
 
-def _budget(device: torch.device) -> int | None:
+def scene_budget_bytes(device) -> int | None:
+    """The bytes the f32 layout may take on ``device`` (see
+    :data:`SCENE_BUDGET_BYTES`)."""
+    device = torch.device(device)
     if SCENE_BUDGET_BYTES is not None:
         return SCENE_BUDGET_BYTES
     if device.type == "cuda":
@@ -52,13 +55,30 @@ class TriangleBvh:
     # -- constructors -----------------------------------------------------------
 
     @classmethod
-    def with_obj(cls, path, leaf_max: int | None = None) -> "TriangleBvh":
-        """Load an OBJ file and build the BVH (``building.rs:28``)."""
-        return cls.build(load_obj(path), leaf_max=leaf_max)
+    def with_obj(cls, path, use_native: bool | None = None, leaf_max: int | None = None) -> "TriangleBvh":
+        """Load an OBJ file and build the BVH (``building.rs:28``).
+
+        Loads and builds with the native C++ code (``scene/bvh/native.py``)
+        where it is available, unless ``use_native=False``.
+        """
+        from minipath_tpu_torch.scene.bvh import native
+
+        if use_native is None:
+            use_native = native.is_available()
+        mesh = native.load_obj_native(path) if use_native else load_obj(path)
+        return cls.build(mesh, use_native=use_native, leaf_max=leaf_max)
 
     @classmethod
-    def build(cls, mesh: MeshData, materials=None, leaf_max: int | None = None) -> "TriangleBvh":
+    def build(
+        cls, mesh: MeshData, materials=None, use_native: bool | None = None, leaf_max: int | None = None
+    ) -> "TriangleBvh":
+        """Build the BVH of ``mesh``: with the Python builder (the reference)
+        unless ``use_native=True`` asks for the C++ one."""
+        from minipath_tpu_torch.scene.bvh import native
+
         kw = {} if leaf_max is None else {"leaf_max": leaf_max}
+        if use_native:
+            return cls(native.build_bvh_native(mesh, materials=materials, **kw))
         return cls(build_bvh(mesh, materials=materials, **kw))
 
     # -- data access ------------------------------------------------------------
@@ -79,7 +99,7 @@ class TriangleBvh:
         return N * (48 + 8) * 4 + M * (80 * 4 + (8 * 20 * 2 if pt else 72 * 4))
 
     def _quantized(self, device: torch.device, pt: bool) -> bool:
-        budget = _budget(device)
+        budget = scene_budget_bytes(device)
         return budget is not None and self.f32_scene_bytes(pt) > budget
 
     def kernel_scene(self, device):
@@ -147,6 +167,16 @@ class TriangleBvh:
     @property
     def recommended_stack_size(self) -> int:
         return self._build.recommended_stack_size
+
+    def intersect(self, rays, t_max=np.inf):
+        """Closest hits of ``rays`` (``(B, P, 3)`` fields, on any device)
+        through the portable engine (``render/traversal.py``), with the
+        build's recommended stack."""
+        from minipath_tpu_torch.render.traversal import intersect_bvh
+
+        return intersect_bvh(
+            self.arrays(rays.origin.device), rays, t_max=t_max, stack_size=self.recommended_stack_size
+        )
 
     def get_bounding_box(self) -> AABB:
         return AABB(

@@ -69,12 +69,22 @@ def _nvcc() -> str:
 
 def load_cuda_library(source: Path) -> CudaLibrary:
     """Compile ``source`` (if its build is missing) and load it. Each source
-    has its own lock, so that threads build different sources at once."""
-    source = Path(source).resolve()
+    has its own lock, so that threads build different sources at once.
+
+    The wrappers call this at every launch, so a source already loaded is
+    found by the path as given, before ``Path.resolve``: where file-system
+    calls are slow, its system calls cost more than the launch itself
+    (``chip_smoke.py`` phase 13 times both).
+    """
+    built = _libraries.get(source)
+    if built is not None:
+        return built
+    given, source = source, Path(source).resolve()
     with _lock:
         lock = _locks.setdefault(source, threading.Lock())
     with lock:
         if source in _libraries:
+            _libraries[given] = _libraries[source]
             return _libraries[source]
         digest = hashlib.sha256(
             source.read_bytes() + " ".join(NVCC_FLAGS).encode()
@@ -101,5 +111,5 @@ def load_cuda_library(source: Path) -> CudaLibrary:
             os.replace(tmp, out)
         log = log_path.read_text() if log_path.exists() else ""
         built = CudaLibrary(ctypes.CDLL(str(out)), out, seconds, log)
-        _libraries[source] = built
+        _libraries[source] = _libraries[given] = built
         return built

@@ -9,13 +9,17 @@ exits non-zero. There is no CPU path: without a CUDA device it fails at once.
 2. Build: compiles the three CUDA sources (``csrc/traverse.cu``: K1, K2;
    ``csrc/traverse_q.cu``: K3; ``csrc/chain.cu``: K4, K5) with nvcc, all at
    once, and prints what ptxas says of each kernel (registers, stack frame,
-   spills) and the chain kernels' multiplies and min/max in the SASS.
+   spills, the blocks an SM holds) and the chain kernels' multiplies and
+   min/max in the SASS. Fails where a traversal kernel's frame exceeds its
+   stack of 128 entries of 8 bytes, or spills.
 3. Kernel against its plain PyTorch version on the card, on the
    249,284-triangle procedural atrium: 16,384 coherent camera rays from the
    benchmark camera, 16,384 incoherent rays inside the atrium, and the first
    524,288 rays of one dispatch of the main path, made as ``render()`` makes
    them. Prints the agreement and the time of each version at these shapes,
-   and the kernel's time at the whole dispatch.
+   the kernel's time at the whole dispatch, and beside each time its bound
+   and the bytes the launch's threads requested (from its own counters) with
+   the rate that makes; phases 6 and 10 do the same.
 4. Main path: ``render()`` of the atrium at 1920x1080 @ 64 spp in frame
    mode, once cold and once warm; the warm frame counts kernel launches.
 5. CLI: ``python -m minipath_tpu_torch.cli --device cuda`` writes a PNG.
@@ -65,6 +69,10 @@ on bench.py's Sponza-scale atrium (``make_atrium(600_000)``, leaves of up to
     counted); then ``python -m minipath_tpu_torch.bench --device cuda`` in a
     subprocess under a time budget, which must exit 0, print every rung's
     line and end with the JAX bench's keys.
+
+``python3 chip_smoke.py --kernels-only`` runs phases 1, 2, 3, 6 and 10 alone:
+the traversal kernels against their plain versions, with their times, bounds
+and requested bytes (about two minutes, most of it the three scene builds).
 
 ``python3 chip_smoke.py --profile DIR`` also writes a ``torch.profiler``
 summary of one warm path-traced frame to DIR, over the f32 layout (after
@@ -125,16 +133,27 @@ PEAK_FP32_OPS, PEAK_HBM_BYTES = 67e12, 3.35e12
 # 6 multiplies and 6 adds per child box; 9 of each per lane's vertices and
 # 6 subtractions for its edges.
 SLAB_OPS, MT_OPS = 25, 48
+# K3 reads a box beside its u16 words: an inner node's own box from its
+# node_frame row (6 of the row's 8 words), a leaf's from words 58..63 of its
+# first packet's row.
+FRAME_BYTES = 6 * 4
 COST = {
     # kernel: (ops per child box, ops per triangle lane, bytes per node row
-    #          visited, per triangle packet's vertices, per distinct
-    #          triangle hit (its normals and material, for the epilogue),
-    #          and written per ray)
-    "traverse": (SLAB_OPS, MT_OPS, 48 * 4 + 8 * 4, 72 * 4, 9 * 4 + 4, 4 + 4 + 12 + 4),
-    "traverse_pt": (SLAB_OPS, MT_OPS, 48 * 4 + 8 * 4, 72 * 4, 0, 4 * 4),
-    "traverse_q": (SLAB_OPS + 12, MT_OPS + 24, 32 * 4, 36 * 4, 9 + 2, 4 + 4 + 12 + 4),
-    "traverse_q_lean": (SLAB_OPS + 12, MT_OPS + 24, 32 * 4, 36 * 4, 0, 4 * 4),
+    #          visited, per triangle packet's vertices, per leaf's first
+    #          packet, per distinct triangle hit (its normals and material,
+    #          for the epilogue), and written per ray)
+    "traverse": (SLAB_OPS, MT_OPS, 48 * 4 + 8 * 4, 72 * 4, 0, 9 * 4 + 4, 4 + 4 + 12 + 4),
+    "traverse_pt": (SLAB_OPS, MT_OPS, 48 * 4 + 8 * 4, 72 * 4, 0, 0, 4 * 4),
+    "traverse_q": (SLAB_OPS + 12, MT_OPS + 24, 32 * 4 + FRAME_BYTES, 36 * 4, FRAME_BYTES, 9 + 2, 4 + 4 + 12 + 4),
+    "traverse_q_lean": (SLAB_OPS + 12, MT_OPS + 24, 32 * 4 + FRAME_BYTES, 36 * 4, FRAME_BYTES, 0, 4 * 4),
 }
+# Bytes a thread's loads request at one inner visit and at one test of a
+# triangle packet, whatever cache serves them: K1 and K2 a 192 B box row and
+# a 32 B link row, then the packet's 72 vertex words; K3 a 128 B node row and
+# a 32 B frame row, then the 9 int4 that hold a packet's u16 vertices (the
+# two int4 of a leaf's frame, once a leaf visit, are left out: no counter
+# counts leaf visits).
+REQUESTED = {"traverse": (224, 288), "traverse_pt": (224, 288), "traverse_q": (160, 144), "traverse_q_lean": (160, 144)}
 
 
 def log(phase: str, msg: str) -> None:
@@ -173,21 +192,38 @@ def traversal_bound(kernel, rows, r9, hits, **kw):
     layout; K3's decompressed rows keep its indices) with the launch's
     arguments ``kw``."""
     from minipath_tpu_torch.render import kernels
+    from minipath_tpu_torch.scene.bvh import links as L
 
-    slab, mt, node_b, packet_b, hit_b, out_b = COST[kernel]
+    slab, mt, node_b, packet_b, first_b, hit_b, out_b = COST[kernel]
     touched = {}
     kernels._traverse_reference(rows, r9, touched=touched, **kw)
     B, _, P = r9.shape
     ops = int(hits.inner_visits.sum()) * 8 * slab + int(hits.leaf_tests.sum()) * 8 * mt
     n_nodes, n_packets = int(touched["nodes"].sum()), int(touched["packets"].sum())
     n_hit = int(torch.unique(hits.tri[hits.tri >= 0]).numel())
-    nbytes = B * P * (9 * 4 + out_b) + B * 3 * 4 + n_nodes * node_b + n_packets * packet_b + n_hit * hit_b
+    # The touched packets that are the first of their leaf.
+    leaf_links = rows.node_links[(rows.node_links & L.COUNT_MASK) != 0]
+    first = torch.zeros_like(touched["packets"])
+    first[(leaf_links >> L.COUNT_BITS).long()] = True
+    if rows.root & L.COUNT_MASK:
+        first[rows.root >> L.COUNT_BITS] = True
+    n_first = int((touched["packets"] & first).sum())
+    nbytes = (B * P * (9 * 4 + out_b) + B * 3 * 4 + n_nodes * node_b + n_packets * packet_b + n_first * first_b
+              + n_hit * hit_b)
     op_ms, byte_ms = ops / PEAK_FP32_OPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
     by = "operations" if op_ms >= byte_ms else "bytes"
     text = (f"bound {max(op_ms, byte_ms):.4f} ms by {by} ({ops / 1e9:.3f} Gop = {op_ms:.4f} ms; "
             f"{nbytes / 1e6:.2f} MB = {byte_ms:.4f} ms: {n_nodes} node rows, {n_packets} packets, {n_hit} hit "
             f"triangles)")
     return max(op_ms, byte_ms), by, text
+
+
+def requested(kernel, hits, ms) -> str:
+    """The bytes the launch's threads asked the caches for, from its own
+    counters (:data:`REQUESTED`), and the rate that makes over ``ms``."""
+    node_b, packet_b = REQUESTED[kernel]
+    nbytes = int(hits.inner_visits.sum()) * node_b + int(hits.leaf_tests.sum()) * packet_b
+    return f"requested {nbytes / 1e6:.1f} MB = {nbytes / ms / 1e9:.3f} TB/s"
 
 
 def phase_device():
@@ -216,11 +252,39 @@ def phase_build():
     loaders = (kernels.load_library, kernels_q.load_library, calibrate.load_library)
     with ThreadPoolExecutor(len(loaders)) as pool:
         libs = [f.result() for f in [pool.submit(load) for load in loaders]]
+    from minipath_tpu_torch.render.kernels import STACK_CAPACITY
+
     for built in libs:
         regs = [ln.strip() for ln in built.log.splitlines() if "registers" in ln or "spill" in ln]
         log("2 build", f"{built.path.name} nvcc {built.build_seconds:.2f}s | {' | '.join(regs)}")
+    for built, name in zip(libs[:2], ("traverse.cu", "traverse_q.cu")):
+        # A traversal thread keeps its stack of 8-byte entries in local memory
+        # and nothing else: a larger frame means that an array left the
+        # registers.
+        usage = ptxas_usage(built.log)
+        log("2 build", f"{name}: {json.dumps(usage)}")
+        if len(usage) != 3:
+            raise AssertionError(f"{name}: expected ptxas' report of three kernels, got {usage}")
+        for u in usage:
+            if u["stack_frame"] > STACK_CAPACITY * 8 or u["spill_stores"] or u["spill_loads"]:
+                raise AssertionError(f"{name}: a frame beyond the {STACK_CAPACITY * 8} B stack, or spills: {u}")
     log("2 build", f"all three built and loaded in {time.perf_counter() - t0:.2f}s")
     log("2 build", f"chain kernels' SASS: {json.dumps(chain_sass_counts(libs[2].path))}")
+
+
+def ptxas_usage(build_log: str) -> list:
+    """What ``ptxas -v`` says of each kernel in a build's log: registers,
+    stack frame and spill bytes, and the blocks of 128 threads that the
+    registers let one SM hold (65,536 registers, allocated to a warp in units
+    of 256; at most 16 such blocks by threads)."""
+    frames = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", build_log)
+    used = re.findall(r"Used (\d+) registers", build_log)
+    out = []
+    for (frame, stores, loads), regs in zip(frames, used):
+        per_warp = -(-int(regs) * 32 // 256) * 256
+        out.append({"registers": int(regs), "stack_frame": int(frame), "spill_stores": int(stores),
+                    "spill_loads": int(loads), "blocks_per_sm": min(16, 65536 // (per_warp * 4))})
+    return out
 
 
 def chain_sass_counts(library: Path) -> dict:
@@ -326,14 +390,16 @@ def phase_kernel(bvh, device):
         plain_ms = cuda_ms(lambda: kernels.trace_packets_reference(scene, r9, stack_size=stack), 1)
         bound_ms, bound_by, bound = traversal_bound("traverse", scene, r9, got, stack_size=stack, t_max=math.inf,
                                                     live_packets=None)
-        log("3 kernel", f"{text} | kernel {ms:.4f} ms, plain {plain_ms:.2f} ms | {bound}")
+        log("3 kernel", f"{text} | kernel {ms:.4f} ms, plain {plain_ms:.2f} ms | {bound} | "
+            f"{requested('traverse', got, ms)}")
         results[name] = dict(ms=ms, plain_ms=plain_ms, err=err, bound_ms=bound_ms, bound_by=bound_by)
 
     n = dispatch.shape[0] * dispatch.shape[2]
     ms = cuda_ms(lambda: kernels.trace_packets(scene, dispatch, stack_size=stack), 5)
+    got = kernels.trace_packets(scene, dispatch, stack_size=stack)
     log("3 kernel", f"main-path dispatch {tuple(dispatch.shape)} = {n} rays: kernel {ms:.3f} ms "
-        f"= {n / ms / 1e3:.1f} Mrays/s (no plain version at this size: its stack alone is "
-        f"{n * stack * 12 / 1e9:.0f} GB)")
+        f"= {n / ms / 1e3:.1f} Mrays/s, {requested('traverse', got, ms)} (no plain version at this size: its "
+        f"stack alone is {n * stack * 12 / 1e9:.0f} GB)")
     return results
 
 
@@ -522,7 +588,8 @@ def phase_k2(bvh, parts, device):
             "traverse_pt", scene, args, got, stack_size=ss, anyhit=anyhit,
             **{"t_max": math.inf, "live_packets": None, **kw},
         )
-        log("6 k2", f"{text} | kernel {ms:.4f} ms, plain {plain_ms:.2f} ms | {bound}")
+        log("6 k2", f"{text} | kernel {ms:.4f} ms, plain {plain_ms:.2f} ms | {bound} | "
+            f"{requested('traverse_pt', got, ms)}")
         out[key] = dict(ms=ms, plain_ms=plain_ms, err=err, bound_ms=bound_ms, bound_by=bound_by)
         return got
 
@@ -555,8 +622,9 @@ def phase_k2(bvh, parts, device):
     check("roots", "per-packet roots", bounce[:n_roots].contiguous(), dict(roots=roots))
 
     ms = cuda_ms(lambda: kernels.trace_packets_pt(scene, r9, stack_size=ss, live_packets=live_packets), 5)
+    got = kernels.trace_packets_pt(scene, r9, stack_size=ss, live_packets=live_packets)
     log("6 k2", f"whole bounce-1 wavefront {tuple(r9.shape)}, {live_rays} live rays in {n_live_pk} packets: "
-        f"kernel {ms:.3f} ms = {live_rays / ms / 1e3:.1f} Mrays/s")
+        f"kernel {ms:.3f} ms = {live_rays / ms / 1e3:.1f} Mrays/s, {requested('traverse_pt', got, ms)}")
     # Phase 10 traces the same sets with K3.
     sets = dict(bounce=bounce, shadow=(shadow9, live_s), wavefront=(r9, live_packets, live_rays))
     return out, sets
@@ -687,6 +755,7 @@ def phase_pt_cli():
 def build_big_atrium(device):
     """bench.py's Sponza-scale atrium: ``make_atrium(600_000)``, leaves of up
     to 24 triangles, with its quantized layout on ``device``."""
+    from minipath_tpu_torch.scene.bvh import links as L
     from minipath_tpu_torch.scene.bvh.quantize import root_frame
     from minipath_tpu_torch.scene.procedural import make_atrium
     from minipath_tpu_torch.scene.triangle_bvh import TriangleBvh
@@ -696,16 +765,23 @@ def build_big_atrium(device):
     built = time.perf_counter() - t0
     t0 = time.perf_counter()
     q = bvh.quantized_scene(device)
-    # K3 seeds its root entry with the stored box; the quantizer encoded the
-    # root's children against root_frame(box). The two must be one box.
+    # K3 takes the root's frame from its node_frame row; the quantizer encoded
+    # the root's children against root_frame(stored box). The three must be
+    # one box.
     box = q.root_box.cpu().numpy()
     if not np.array_equal(root_frame(box), box):
         raise AssertionError(f"root_frame(root_box) {root_frame(box)} differs from the stored root box {box}")
+    frame = q.node_frame[q.root >> L.COUNT_BITS, :6].cpu().numpy()
+    if not np.array_equal(frame, box):
+        raise AssertionError(f"the root's node_frame row {frame} differs from the stored root box {box}")
     stats = bvh.statistics()
     print(f"big atrium: {stats['triangles']} triangles, {stats['inner_nodes']} inner nodes, max depth "
           f"{stats['max_depth']}, stack {bvh.recommended_stack_size}, built in {built:.1f}s, quantized in "
-          f"{time.perf_counter() - t0:.1f}s: {(q.node_q.numel() + q.tri_q.numel()) * 4 / 1e6:.1f} MB against "
-          f"{bvh.f32_scene_bytes() / 1e6:.1f} MB for the f32 layout", flush=True)
+          f"{time.perf_counter() - t0:.1f}s: {bvh.quantized_scene_bytes() / 1e6:.1f} MB "
+          f"({q.node_frame.numel() * 4 / 1e6:.1f} MB of them node_frame) against {bvh.f32_scene_bytes() / 1e6:.1f} MB "
+          f"for the f32 layout = {bvh.quantized_scene_bytes() / bvh.f32_scene_bytes():.1%}", flush=True)
+    if bvh.quantized_scene_bytes() != sum(t.numel() * t.element_size() for t in (q.node_q, q.tri_q, q.node_frame)):
+        raise AssertionError("quantized_scene_bytes() disagrees with the layout's tensors")
     return bvh
 
 
@@ -733,12 +809,11 @@ def phase_k3(big, pt_bvh, pt_scene, sets, device):
         ms = cuda_ms(run, 20)
         rival_ms = cuda_ms(rival, 20)
         plain_ms = cuda_ms(lambda: kernels_q.trace_packets_q_reference(scene, r9, lean=lean, anyhit=anyhit, **kw), 1)
-        bound_ms, bound_by, bound = traversal_bound(
-            "traverse_q_lean" if lean else "traverse_q", kernels_q.decompressed_kernel_scene(scene), r9, got,
-            anyhit=anyhit, **kw,
-        )
+        cost = "traverse_q_lean" if lean else "traverse_q"
+        bound_ms, bound_by, bound = traversal_bound(cost, kernels_q.decompressed_kernel_scene(scene), r9, got,
+                                                    anyhit=anyhit, **kw)
         log("10 k3", f"{text} | K3 {ms:.4f} ms, plain {plain_ms:.2f} ms, {rival_name} on the same rays "
-            f"{rival_ms:.4f} ms (K3/{rival_name} {ms / rival_ms:.3f}) | {bound}")
+            f"{rival_ms:.4f} ms (K3/{rival_name} {ms / rival_ms:.3f}) | {bound} | {requested(cost, got, ms)}")
         out[key] = dict(ms=ms, plain_ms=plain_ms, rival_ms=rival_ms, err=err, bound_ms=bound_ms, bound_by=bound_by)
 
     # Full mode: the big atrium, a main-path dispatch's first 524,288 rays.
@@ -754,8 +829,11 @@ def phase_k3(big, pt_bvh, pt_scene, sets, device):
     n = dispatch.shape[0] * dispatch.shape[2]
     ms_q = cuda_ms(lambda: kernels_q.trace_packets_q(q, dispatch, stack_size=ss), 5)
     ms_f = cuda_ms(lambda: kernels.trace_packets(f32, dispatch, stack_size=ss), 5)
+    got = kernels_q.trace_packets_q(q, dispatch, stack_size=ss)
     log("10 k3", f"big-atrium main-path dispatch {tuple(dispatch.shape)} = {n} rays: K3 {ms_q:.3f} ms = "
-        f"{n / ms_q / 1e3:.1f} Mrays/s, K1 {ms_f:.3f} ms = {n / ms_f / 1e3:.1f} Mrays/s")
+        f"{n / ms_q / 1e3:.1f} Mrays/s ({requested('traverse_q', got, ms_q)}), K1 {ms_f:.3f} ms = "
+        f"{n / ms_f / 1e3:.1f} Mrays/s")
+    del got
     del dispatch, part
 
     # Lean modes: phase 6's sets through the path-traced atrium's QPTScene.
@@ -772,8 +850,10 @@ def phase_k3(big, pt_bvh, pt_scene, sets, device):
     r9, live_packets, live_rays = sets["wavefront"]
     ms_q = cuda_ms(lambda: kernels_q.trace_packets_q(qpt, r9, stack_size=ss, live_packets=live_packets, lean=True), 5)
     ms_f = cuda_ms(lambda: kernels.trace_packets_pt(pt_scene, r9, stack_size=ss, live_packets=live_packets), 5)
+    got = kernels_q.trace_packets_q(qpt, r9, stack_size=ss, live_packets=live_packets, lean=True)
     log("10 k3", f"whole bounce-1 wavefront, {live_rays} live rays: K3 {ms_q:.3f} ms = {live_rays / ms_q / 1e3:.1f} "
-        f"Mrays/s, K2 {ms_f:.3f} ms = {live_rays / ms_f / 1e3:.1f} Mrays/s")
+        f"Mrays/s ({requested('traverse_q_lean', got, ms_q)}), K2 {ms_f:.3f} ms = {live_rays / ms_f / 1e3:.1f} "
+        f"Mrays/s")
     return out
 
 
@@ -1098,6 +1178,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description="Smoke test of minipath_tpu_torch on one NVIDIA GPU.")
     parser.add_argument("--profile", type=Path, default=None, metavar="DIR",
                         help="also profile one warm path-traced frame on each layout and write the summaries to DIR")
+    parser.add_argument("--kernels-only", action="store_true",
+                        help="run phases 1, 2, 3, 6 and 10 alone (the traversal kernels against their plain versions, "
+                             "with their times); prints neither the kernels line nor the last line")
     args = parser.parse_args()
     smi = phase_device()
     phase_build()
@@ -1112,6 +1195,14 @@ def main() -> int:
           f"max depth {stats['max_depth']}, stack {bvh.recommended_stack_size}, "
           f"built in {time.perf_counter() - t0:.1f}s", flush=True)
     kernel = phase_kernel(bvh, device)
+    if args.kernels_only:
+        del bvh
+        pt_bvh, dicts = build_pt_atrium()
+        parts = pt_parts(pt_bvh, dicts, device)
+        _, sets = phase_k2(pt_bvh, parts, device)
+        phase_k3(build_big_atrium(device), pt_bvh, parts[0], sets, device)
+        print("kernels only: phases 1, 2, 3, 6 and 10 passed", flush=True)
+        return 0
     launches = phase_main_path(bvh, device, smi)
     phase_cli()
 

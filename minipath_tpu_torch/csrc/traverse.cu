@@ -17,18 +17,29 @@
 // Rays: (B, 9, P) f32 rows o, d, inv_d, so neighbouring threads load
 // neighbouring words.
 //
+// What bounds the loop on an H100. A warp's 32 rays read 32 different rows,
+// so every load costs the L1 about one pass a thread whatever its
+// width, and the bytes the threads request (224 B an inner visit, 288 B a
+// packet test) add up to terabytes a second, served by L1 and L2: the loop is
+// short of load slots and cache bandwidth as much as of latency. What
+// the design does about it:
+//   - 16-byte loads: a node's boxes are 12 float4, two children to three of
+//     them; a packet's 72 vertex words are 18 float4, taken nine at a time
+//     (lanes 0-3, then lanes 4-7) so that the registers they take stay
+//     bounded, and unpacked by constant indices;
+//   - nothing but the stack in local memory: the hit children are sorted by
+//     insertion straight into the stack as their slab tests finish, and the
+//     entry being visited (the nearest child, as a rule) stays in registers
+//     instead of going through the stack (traverse_common.cuh);
+//   - a ray goes on through inner nodes while its entry is one and does its
+//     leaf after, so that a warp's rays meet at the leaf part.
+// Each ray's sequence of visits is that of the plain version.
+//
 // Every floating-point step is written in the same order as the plain
 // version, and the library is built with -fmad=false, so both give the same
 // bits for t, tri, u and v.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#define MP_STACK_CAPACITY 128
-#define MP_NULL_LINK (-8)
-#define MP_COUNT_BITS 3
-#define MP_COUNT_MASK 7
-#define MP_BLOCK 128
+#include "traverse_common.cuh"
 
 namespace {
 
@@ -61,14 +72,13 @@ struct TraceArgs {
 // ANYHIT: a ray stops after the first 8-triangle packet in which it has a
 // hit with 0 <= t < t_max; only `tri >= 0` then carries meaning.
 template <bool LEAN, bool ANYHIT>
-__global__ void __launch_bounds__(MP_BLOCK) traverse_kernel(const TraceArgs a) {
+__global__ void __launch_bounds__(MP_BLOCK, MP_MIN_BLOCKS) traverse_kernel(const TraceArgs a) {
   const int64_t ray = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const bool valid = ray < a.n_rays;
   const int64_t b = valid ? ray / a.P : 0;
   const int P = a.P;
 
-  float best_t = a.t_max, best_u = 0.f, best_v = 0.f;
-  int best_tri = -1;
+  MpBest best{a.t_max, 0.f, 0.f, -1};
   int ovf = 0, ivis = 0, ltst = 0;
 
   if (valid) {
@@ -84,123 +94,115 @@ __global__ void __launch_bounds__(MP_BLOCK) traverse_kernel(const TraceArgs a) {
     const int root = a.roots ? __ldg(a.roots + b) : a.root;
     const bool live = a.live_packets ? b < (int64_t)__ldg(a.live_packets) : ray < a.live_rays;
 
-    int stack_link[MP_STACK_CAPACITY];
-    float stack_t[MP_STACK_CAPACITY];
+    // Entry = {link (as float bits), t_entry}: one 8-byte local access.
+    float2 stack[MP_STACK_CAPACITY];
     int sp = 0;
-    if (root != MP_NULL_LINK && live) {
-      stack_link[0] = root;
-      stack_t[0] = 0.f;
-      sp = 1;
-    }
+    // The entry being visited lives in registers. The root enters with
+    // t_entry 0, under the pop's prune test.
+    int cur = root;
+    bool have = root != MP_NULL_LINK && live && !(0.f > best.t);
 
-    while (sp > 0) {
-      --sp;
-      const int link = stack_link[sp];
-      // Occlusion prune at pop: the subtree starts beyond this ray's best.
-      if (stack_t[sp] > best_t) continue;
-      const int count = link & MP_COUNT_MASK;
-      const int idx = link >> MP_COUNT_BITS;
-
-      if (count == 0) {
+    while (have) {
+      // Inner nodes first: the ray walks on while its entry is an inner node,
+      // so that a warp's rays meet at the leaf part below.
+      while (have && (cur & MP_COUNT_MASK) == 0) {
         ++ivis;
-        const float2* box = reinterpret_cast<const float2*>(a.node_box + (int64_t)idx * 48);
+        const int idx = cur >> MP_COUNT_BITS;
+        const float4* box = reinterpret_cast<const float4*>(a.node_box + (int64_t)idx * 48);
         const int4* lk = reinterpret_cast<const int4*>(a.node_links + (int64_t)idx * 8);
         const int4 la = __ldg(lk), lb = __ldg(lk + 1);
         const int links[8] = {la.x, la.y, la.z, la.w, lb.x, lb.y, lb.z, lb.w};
-        // Hit children, sorted by entry distance, farthest first (stable
-        // for ties), so that the nearest is pushed last and pops first.
-        int hit_link[8];
-        float hit_t[8];
-        int n_hit = 0;
+        // The hit children go to the stack as their slab tests finish. Two
+        // children share three float4s of the row.
+        MpChildren ch = mp_children(sp, a.stack_size);
 #pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          const float2 p0 = __ldg(box + 3 * c), p1 = __ldg(box + 3 * c + 1),
-                       p2 = __ldg(box + 3 * c + 2);
-          const float tx0 = (p0.x - ox) * ix, tx1 = (p1.y - ox) * ix;
-          const float ty0 = (p0.y - oy) * iy, ty1 = (p2.x - oy) * iy;
-          const float tz0 = (p1.x - oz) * iz, tz1 = (p2.y - oz) * iz;
-          const float t1 = fmaxf(fmaxf(fminf(tx0, tx1), 0.f),
-                                 fmaxf(fminf(ty0, ty1), fminf(tz0, tz1)));
-          const float t2 = fminf(fminf(fmaxf(tx0, tx1), best_t),
-                                 fminf(fmaxf(ty0, ty1), fmaxf(tz0, tz1)));
-          if (t1 <= t2 && links[c] != MP_NULL_LINK) {
-            int j = n_hit++;
-            while (j > 0 && hit_t[j - 1] < t1) {
-              hit_t[j] = hit_t[j - 1];
-              hit_link[j] = hit_link[j - 1];
-              --j;
-            }
-            hit_t[j] = t1;
-            hit_link[j] = links[c];
+        for (int p = 0; p < 4; ++p) {
+          const float4 f0 = __ldg(box + 3 * p), f1 = __ldg(box + 3 * p + 1), f2 = __ldg(box + 3 * p + 2);
+          const float lo[2][3] = {{f0.x, f0.y, f0.z}, {f1.z, f1.w, f2.x}};
+          const float hi[2][3] = {{f0.w, f1.x, f1.y}, {f2.y, f2.z, f2.w}};
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int c = 2 * p + h;
+            const float tx0 = (lo[h][0] - ox) * ix, tx1 = (hi[h][0] - ox) * ix;
+            const float ty0 = (lo[h][1] - oy) * iy, ty1 = (hi[h][1] - oy) * iy;
+            const float tz0 = (lo[h][2] - oz) * iz, tz1 = (hi[h][2] - oz) * iz;
+            const float t1 = fmaxf(fmaxf(fminf(tx0, tx1), 0.f),
+                                   fmaxf(fminf(ty0, ty1), fminf(tz0, tz1)));
+            const float t2 = fminf(fminf(fmaxf(tx0, tx1), best.t),
+                                   fminf(fmaxf(ty0, ty1), fmaxf(tz0, tz1)));
+            if (t1 <= t2 && links[c] != MP_NULL_LINK) mp_hit_child(stack + sp, ch, t1, links[c], ovf);
           }
         }
-        for (int k = 0; k < n_hit; ++k) {
-          // Bounded push: an entry that does not fit is dropped and counted.
-          if (sp < a.stack_size) {
-            stack_link[sp] = hit_link[k];
-            stack_t[sp] = hit_t[k];
-            ++sp;
-          } else {
-            ++ovf;
-          }
-        }
-      } else {
+        have = mp_children_done(stack, sp, ch, best.t, cur, ovf);
+      }
+      if (!have) break;
+
+      // The leaf: its packets of 8 triangles, in order.
+      {
+        const int count = cur & MP_COUNT_MASK;
+        const int idx = cur >> MP_COUNT_BITS;
         ltst += count;
         for (int j = 0; j < count; ++j) {
           const int pk = idx + j;
-          const float* row = a.tri_data + (int64_t)pk * 80;
-#pragma unroll 2
-          for (int lane = 0; lane < 8; ++lane) {
-            const float* tr = row + 9 * lane;
-            const float v0x = __ldg(tr), v0y = __ldg(tr + 1), v0z = __ldg(tr + 2);
-            const float e1x = __ldg(tr + 3), e1y = __ldg(tr + 4), e1z = __ldg(tr + 5);
-            const float e2x = __ldg(tr + 6), e2y = __ldg(tr + 7), e2z = __ldg(tr + 8);
-            // Two-sided Moller-Trumbore.
-            const float px = dy * e2z - dz * e2y;
-            const float py = dz * e2x - dx * e2z;
-            const float pz = dx * e2y - dy * e2x;
-            const float det = e1x * px + e1y * py + e1z * pz;
-            const float inv_det = 1.0f / det;
-            const float sx = ox - v0x, sy = oy - v0y, sz = oz - v0z;
-            const float u = inv_det * (sx * px + sy * py + sz * pz);
-            const float qx = sy * e1z - sz * e1y;
-            const float qy = sz * e1x - sx * e1z;
-            const float qz = sx * e1y - sy * e1x;
-            const float v = inv_det * (dx * qx + dy * qy + dz * qz);
-            const float t = inv_det * (e2x * qx + e2y * qy + e2z * qz);
-            if (u >= 0.f && v >= 0.f && u + v <= 1.f && t >= 0.f && t < best_t) {
-              best_t = t;
-              best_tri = pk * 8 + lane;
-              best_u = u;
-              best_v = v;
+          const float4* row = reinterpret_cast<const float4*>(a.tri_data + (int64_t)pk * 80);
+          // A half of the packet (lanes 0-3: words 0..35, float4 0..8; lanes
+          // 4-7: words 36..71, float4 9..17) is taken two lanes at a time, so
+          // that 20 registers hold the words in flight: float4 0..4 for the
+          // first two lanes, then float4 4 again (kept) and 5..8 for the next
+          // two, whose words start at word 2 of these.
+#pragma unroll 1
+          for (int half = 0; half < 2; ++half) {
+            float w[20];
+#pragma unroll
+            for (int quarter = 0; quarter < 2; ++quarter) {
+#pragma unroll
+              for (int i = quarter; i < 5; ++i) {
+                const float4 f = __ldg(row + 9 * half + 4 * quarter + i);
+                w[4 * i] = f.x;
+                w[4 * i + 1] = f.y;
+                w[4 * i + 2] = f.z;
+                w[4 * i + 3] = f.w;
+              }
+#pragma unroll
+              for (int l = 0; l < 2; ++l) {
+                const float* tr = w + 2 * quarter + 9 * l;  // v0, e1, e2
+                mp_test_triangle(ox, oy, oz, dx, dy, dz, tr[0], tr[1], tr[2], tr[3], tr[4], tr[5], tr[6], tr[7],
+                                 tr[8], pk * 8 + 4 * half + 2 * quarter + l, best);
+              }
+              // The last float4 holds the first two words of the next lanes.
+              w[0] = w[16];
+              w[1] = w[17];
+              w[2] = w[18];
+              w[3] = w[19];
             }
           }
-          if (ANYHIT && best_tri >= 0) break;
+          if (ANYHIT && best.tri >= 0) break;
         }
         // Occlusion: the first packet with a hit ends the ray's traversal.
-        if (ANYHIT && best_tri >= 0) sp = 0;
+        if (ANYHIT && best.tri >= 0) break;
+        have = mp_pop(stack, sp, best.t, cur);
       }
     }
 
-    a.t_out[ray] = best_t;
-    a.tri_out[ray] = best_tri;
+    a.t_out[ray] = best.t;
+    a.tri_out[ray] = best.tri;
     if (LEAN) {
-      a.u_out[ray] = best_u;
-      a.v_out[ray] = best_v;
+      a.u_out[ray] = best.u;
+      a.v_out[ray] = best.v;
     } else {
       // Shading normal of the winning hit, interpolated once from its
       // (u, v): the value the TPU kernel carries through every accepted hit.
       float nx = 0.f, ny = 0.f, nz = 0.f;
       int mat = 0;
-      if (best_tri >= 0) {
-        const int pk = best_tri >> 3, lane = best_tri & 7;
+      if (best.tri >= 0) {
+        const int pk = best.tri >> 3, lane = best.tri & 7;
         const float* sh = a.tri_shade + (int64_t)pk * 72 + 9 * lane;
         const float n0x = __ldg(sh), n0y = __ldg(sh + 1), n0z = __ldg(sh + 2);
         const float n1x = __ldg(sh + 3), n1y = __ldg(sh + 4), n1z = __ldg(sh + 5);
         const float n2x = __ldg(sh + 6), n2y = __ldg(sh + 7), n2z = __ldg(sh + 8);
-        const float ix_ = n0x + best_u * (n1x - n0x) + best_v * (n2x - n0x);
-        const float iy_ = n0y + best_u * (n1y - n0y) + best_v * (n2y - n0y);
-        const float iz_ = n0z + best_u * (n1z - n0z) + best_v * (n2z - n0z);
+        const float ix_ = n0x + best.u * (n1x - n0x) + best.v * (n2x - n0x);
+        const float iy_ = n0y + best.u * (n1y - n0y) + best.v * (n2y - n0y);
+        const float iz_ = n0z + best.u * (n1z - n0z) + best.v * (n2z - n0z);
         const float inv_len = rsqrtf(fmaxf(ix_ * ix_ + iy_ * iy_ + iz_ * iz_, 1e-30f));
         nx = ix_ * inv_len;
         ny = iy_ * inv_len;

@@ -10,34 +10,43 @@
 // type are in minipath_tpu_torch/render/kernels_q.py; the quantizer is
 // minipath_tpu_torch/scene/bvh/quantize.py.
 //
-// What bounds it on an H100: as K1 and K2 (csrc/traverse.cu), divergent,
-// latency-bound loads of node and triangle rows, which neighbouring threads
-// take from different places. The layout reads fewer bytes a step: a node row
-// is 128 B (u16 child boxes and links) against 192 + 32 B, and a lean leaf
-// visit reads the 144 B of vertex words of a 256 B triangle row against 320 B.
-// The price is the dequantization: 12 multiply-adds per child box, 18 per
-// triangle lane, each rounded twice.
+// What bounds it on an H100: as K1 and K2 (csrc/traverse.cu), divergent
+// loads of node and triangle rows, which neighbouring threads take from
+// different places, so that load slots and cache bandwidth run short
+// beside latency. The layout requests fewer bytes a step: a node row is 128 B
+// (u16 child boxes and links) and its frame row 32 B against 192 + 32 B, and a
+// lean leaf visit reads the 144 B of vertex words of a 256 B triangle row
+// against 288 B. The price is the dequantization: 12 multiply-adds per child
+// box, 18 per triangle lane, each rounded twice.
 //
-// Design. Each stack entry is (link, t_entry, its decompressed box): eight
-// words, two float4s of local memory. The box is what the pop needs: an inner
-// node's box is the frame its children's u16 boxes decompress against, and a
-// leaf's box is the frame of its triangles. The root's entry takes the stored
-// scene box. Per ray the rules are K1's: slab test with 1/d clamped to
-// +-1e30, hit children sorted by entry distance and pushed far-first (stable),
-// prune at pop, two-sided Moller-Trumbore with a strict t < best_t, lanes in
-// order; any-hit stops after the first 8-triangle packet with a hit under
-// t_max. The TPU kernel's octant child order and its missing pop re-prune
-// exist for a 2048-lane shared stack and are not carried over. Rows are read
-// through the read-only cache as int4: a node row as 8, a triangle row as 16,
-// of which a lean leaf visit reads the first 9 (in two halves, to bound the
-// registers that hold them).
+// Design. A stack entry is (link, t_entry), 8 bytes, as K1's and K2's
+// (traverse_common.cuh): the box a pop needs is not carried on the stack but
+// read where it lives. An inner node's own decompressed box, the frame its
+// children's u16 boxes decompress against, is its node_frame row, read beside
+// the node row (two loads that do not wait for each other); a leaf's box, the
+// frame of its triangles, rides as float bits in words 58..63 of its packets'
+// rows and arrives with the first of them. Both are derived once, at scene
+// preparation, with the very float32 steps below (render/kernels_q.py); a BVH
+// is a tree, so a node's box is a function of the node alone. The hit children
+// are sorted by insertion straight into the stack, and the nearest goes on in
+// registers without a round trip through the stack. Per ray the rules are
+// K1's: slab test with 1/d clamped to +-1e30, hit children pushed far-first
+// (stable), prune at pop, two-sided Moller-Trumbore with a strict t < best.t,
+// lanes in order; any-hit stops after the first 8-triangle packet with a hit
+// under t_max. The TPU kernel's octant child order and its missing pop
+// re-prune exist for a 2048-lane shared stack and are not carried over. Rows
+// are read through the read-only cache as int4: a node row as 8, a triangle
+// row as 16, of which a lean leaf visit reads the first 9 (in two halves, to
+// bound the registers that hold them) and, once a leaf, the last 2.
 //
 // Rows (16-byte aligned):
 //   node_q (N, 32) i32: child c's box at words 3c..3c+2 as u16 pairs
 //          (minx|miny, minz|maxx, maxy|maxz); links at words 24..31
 //   tri_q  (M, 64) i32: 72 u16 vertex coordinates at words 0..35 (lane l,
 //          value k at 9l+k), 8 u16 materials at 36..39, 72 i8 normal
-//          components at 40..57 (same order as the vertices)
+//          components at 40..57 (same order as the vertices), the leaf's own
+//          box as 6 f32 at 58..63
+//   node_frame (N, 8) f32: the node's own box (min xyz, max xyz), 2 of padding
 // Rays: (B, 9, P) f32 rows o, d, inv_d.
 //
 // The decompression is written as scale = (max - min) * (1/65535), then
@@ -46,14 +55,8 @@
 // child box for exactly these separately rounded steps, and the plain version
 // takes the same steps, so both give the same bits.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "traverse_common.cuh"
 
-#define MP_STACK_CAPACITY 128
-#define MP_NULL_LINK (-8)
-#define MP_COUNT_BITS 3
-#define MP_COUNT_MASK 7
-#define MP_BLOCK 128
 #define MP_INV_U16 0x1.0001p-16f   // float32(1 / 65535)
 #define MP_INV_127 0x1.020408p-7f  // float32(1 / 127)
 
@@ -62,8 +65,8 @@ namespace {
 struct TraceArgsQ {
   const int4* node_q;     // 8 int4 a row
   const int4* tri_q;      // 16 int4 a row
+  const float4* node_frame;  // 2 float4 a row: the node's own box
   int root;
-  const float* root_box;  // (6,) f32: the root entry's frame
   // Live packets as one i32 in device memory, or null (every packet live).
   const int* live_packets;
   const float* rays9;
@@ -80,8 +83,15 @@ struct TraceArgsQ {
   int* counters;      // (B, 3) i32, zeroed by the caller
 };
 
-__device__ __forceinline__ float lo16(int w) { return (float)(w & 0xFFFF); }
-__device__ __forceinline__ float hi16(int w) { return (float)((w >> 16) & 0xFFFF); }
+// The low and the high u16 of a word as float, without an integer-to-float
+// conversion: the 16 bits placed under the exponent of 2^23 are the float
+// 2^23 + q exactly, and the subtraction of 2^23 is exact too.
+__device__ __forceinline__ float lo16(int w) {
+  return __uint_as_float(__byte_perm((unsigned)w, 0x4B000000u, 0x7610)) - 8388608.f;
+}
+__device__ __forceinline__ float hi16(int w) {
+  return __uint_as_float(__byte_perm((unsigned)w, 0x4B000000u, 0x7632)) - 8388608.f;
+}
 
 // Byte k (0..3) of w, sign-extended: (w << (24 - 8k)) >> 24 on int32.
 __device__ __forceinline__ float i8f(int w, int k) {
@@ -89,14 +99,13 @@ __device__ __forceinline__ float i8f(int w, int k) {
 }
 
 template <bool LEAN, bool ANYHIT>
-__global__ void __launch_bounds__(MP_BLOCK) traverse_q_kernel(const TraceArgsQ a) {
+__global__ void __launch_bounds__(MP_BLOCK, MP_MIN_BLOCKS) traverse_q_kernel(const TraceArgsQ a) {
   const int64_t ray = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const bool valid = ray < a.n_rays;
   const int64_t b = valid ? ray / a.P : 0;
   const int P = a.P;
 
-  float best_t = a.t_max, best_u = 0.f, best_v = 0.f;
-  int best_tri = -1;
+  MpBest best{a.t_max, 0.f, 0.f, -1};
   int ovf = 0, ivis = 0, ltst = 0;
 
   if (valid) {
@@ -108,30 +117,24 @@ __global__ void __launch_bounds__(MP_BLOCK) traverse_q_kernel(const TraceArgsQ a
     const float iz = fminf(fmaxf(__ldg(r + 8 * P), -1e30f), 1e30f);
     const bool live = a.live_packets ? b < (int64_t)__ldg(a.live_packets) : true;
 
-    // Entry = {link (as float bits), t_entry, min x, min y} {min z, max x, max y, max z}.
-    float4 stack[MP_STACK_CAPACITY][2];
+    // Entry = {link (as float bits), t_entry}: one 8-byte local access.
+    float2 stack[MP_STACK_CAPACITY];
     int sp = 0;
-    if (a.root != MP_NULL_LINK && live) {
-      stack[0][0] = make_float4(__int_as_float(a.root), 0.f, __ldg(a.root_box), __ldg(a.root_box + 1));
-      stack[0][1] = make_float4(__ldg(a.root_box + 2), __ldg(a.root_box + 3), __ldg(a.root_box + 4),
-                                __ldg(a.root_box + 5));
-      sp = 1;
-    }
+    // The entry being visited lives in registers. The root enters with
+    // t_entry 0, under the pop's prune test.
+    int cur = a.root;
+    bool have = a.root != MP_NULL_LINK && live && !(0.f > best.t);
 
-    while (sp > 0) {
-      --sp;
-      const float4 e0 = stack[sp][0];
-      // Occlusion prune at pop: the subtree starts beyond this ray's best.
-      if (e0.y > best_t) continue;
-      const float4 e1 = stack[sp][1];
-      const int link = __float_as_int(e0.x);
-      const float bminx = e0.z, bminy = e0.w, bminz = e1.x;
-      const float bmaxx = e1.y, bmaxy = e1.z, bmaxz = e1.w;
-      const int count = link & MP_COUNT_MASK;
-      const int idx = link >> MP_COUNT_BITS;
-
-      if (count == 0) {
+    while (have) {
+      // Inner nodes first: the ray walks on while its entry is an inner node,
+      // so that a warp's rays meet at the leaf part below.
+      while (have && (cur & MP_COUNT_MASK) == 0) {
         ++ivis;
+        const int idx = cur >> MP_COUNT_BITS;
+        // The node's own box, the frame of its children's u16 boxes: two
+        // loads that do not wait for the row's.
+        const float4* frame = a.node_frame + (int64_t)idx * 2;
+        const float4 fa = __ldg(frame), fb = __ldg(frame + 1);
         const int4* row = a.node_q + (int64_t)idx * 8;
         int w[24];
 #pragma unroll
@@ -144,14 +147,12 @@ __global__ void __launch_bounds__(MP_BLOCK) traverse_q_kernel(const TraceArgsQ a
         }
         const int4 la = __ldg(row + 6), lb = __ldg(row + 7);
         const int links[8] = {la.x, la.y, la.z, la.w, lb.x, lb.y, lb.z, lb.w};
-        const float msx = (bmaxx - bminx) * MP_INV_U16;
-        const float msy = (bmaxy - bminy) * MP_INV_U16;
-        const float msz = (bmaxz - bminz) * MP_INV_U16;
-        // Hit children, sorted by entry distance, farthest first (stable
-        // for ties), so that the nearest is pushed last and pops first.
-        int hit_c[8];
-        float hit_t[8];
-        int n_hit = 0;
+        const float bminx = fa.x, bminy = fa.y, bminz = fa.z;
+        const float msx = (fa.w - bminx) * MP_INV_U16;
+        const float msy = (fb.x - bminy) * MP_INV_U16;
+        const float msz = (fb.y - bminz) * MP_INV_U16;
+        // The hit children go to the stack as their slab tests finish.
+        MpChildren ch = mp_children(sp, a.stack_size);
 #pragma unroll
         for (int c = 0; c < 8; ++c) {
           const float cminx = bminx + lo16(w[3 * c]) * msx;
@@ -165,43 +166,27 @@ __global__ void __launch_bounds__(MP_BLOCK) traverse_q_kernel(const TraceArgsQ a
           const float tz0 = (cminz - oz) * iz, tz1 = (cmaxz - oz) * iz;
           const float t1 = fmaxf(fmaxf(fminf(tx0, tx1), 0.f),
                                  fmaxf(fminf(ty0, ty1), fminf(tz0, tz1)));
-          const float t2 = fminf(fminf(fmaxf(tx0, tx1), best_t),
+          const float t2 = fminf(fminf(fmaxf(tx0, tx1), best.t),
                                  fminf(fmaxf(ty0, ty1), fmaxf(tz0, tz1)));
-          if (t1 <= t2 && links[c] != MP_NULL_LINK) {
-            int j = n_hit++;
-            while (j > 0 && hit_t[j - 1] < t1) {
-              hit_t[j] = hit_t[j - 1];
-              hit_c[j] = hit_c[j - 1];
-              --j;
-            }
-            hit_t[j] = t1;
-            hit_c[j] = c;
-          }
+          if (t1 <= t2 && links[c] != MP_NULL_LINK) mp_hit_child(stack + sp, ch, t1, links[c], ovf);
         }
-        const int* words = reinterpret_cast<const int*>(row);
-        for (int k = 0; k < n_hit; ++k) {
-          // Bounded push: an entry that does not fit is dropped and counted.
-          if (sp < a.stack_size) {
-            // The child's box again, from the row's words (an L1 hit), with
-            // the same steps as in the slab test: the same bits.
-            const int c = hit_c[k];
-            const int w0 = __ldg(words + 3 * c), w1 = __ldg(words + 3 * c + 1),
-                      w2 = __ldg(words + 3 * c + 2);
-            stack[sp][0] = make_float4(__int_as_float(__ldg(words + 24 + c)), hit_t[k],
-                                       bminx + lo16(w0) * msx, bminy + hi16(w0) * msy);
-            stack[sp][1] = make_float4(bminz + lo16(w1) * msz, bminx + hi16(w1) * msx,
-                                       bminy + lo16(w2) * msy, bminz + hi16(w2) * msz);
-            ++sp;
-          } else {
-            ++ovf;
-          }
-        }
-      } else {
+        have = mp_children_done(stack, sp, ch, best.t, cur, ovf);
+      }
+      if (!have) break;
+
+      // The leaf: its packets of 8 triangles, in order.
+      {
+        const int count = cur & MP_COUNT_MASK;
+        const int idx = cur >> MP_COUNT_BITS;
         ltst += count;
-        // The leaf's triangles are u16 fractions of the leaf's own box.
-        const float lsx = (bmaxx - bminx) * MP_INV_U16;
-        const float lsy = (bmaxy - bminy) * MP_INV_U16;
-        const float lsz = (bmaxz - bminz) * MP_INV_U16;
+        // The leaf's own box, the frame of its triangles' u16 vertices, rides
+        // in words 58..63 of its packets' rows (as float bits).
+        const int4* first = a.tri_q + (int64_t)idx * 16;
+        const int4 fa = __ldg(first + 14), fb = __ldg(first + 15);
+        const float bminx = __int_as_float(fa.z), bminy = __int_as_float(fa.w), bminz = __int_as_float(fb.x);
+        const float lsx = (__int_as_float(fb.y) - bminx) * MP_INV_U16;
+        const float lsy = (__int_as_float(fb.z) - bminy) * MP_INV_U16;
+        const float lsz = (__int_as_float(fb.w) - bminz) * MP_INV_U16;
         for (int j = 0; j < count; ++j) {
           const int pk = idx + j;
           const int4* row = a.tri_q + (int64_t)pk * 16;
@@ -234,46 +219,30 @@ __global__ void __launch_bounds__(MP_BLOCK) traverse_q_kernel(const TraceArgsQ a
               const float e2y = bminy + MP_COORD(7) * lsy - v0y;
               const float e2z = bminz + MP_COORD(8) * lsz - v0z;
 #undef MP_COORD
-              // Two-sided Moller-Trumbore, K1's steps.
-              const float px = dy * e2z - dz * e2y;
-              const float py = dz * e2x - dx * e2z;
-              const float pz = dx * e2y - dy * e2x;
-              const float det = e1x * px + e1y * py + e1z * pz;
-              const float inv_det = 1.0f / det;
-              const float sx = ox - v0x, sy = oy - v0y, sz = oz - v0z;
-              const float u = inv_det * (sx * px + sy * py + sz * pz);
-              const float qx = sy * e1z - sz * e1y;
-              const float qy = sz * e1x - sx * e1z;
-              const float qz = sx * e1y - sy * e1x;
-              const float v = inv_det * (dx * qx + dy * qy + dz * qz);
-              const float t = inv_det * (e2x * qx + e2y * qy + e2z * qz);
-              if (u >= 0.f && v >= 0.f && u + v <= 1.f && t >= 0.f && t < best_t) {
-                best_t = t;
-                best_tri = pk * 8 + lane;
-                best_u = u;
-                best_v = v;
-              }
+              mp_test_triangle(ox, oy, oz, dx, dy, dz, v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z,
+                               pk * 8 + lane, best);
             }
           }
-          if (ANYHIT && best_tri >= 0) break;
+          if (ANYHIT && best.tri >= 0) break;
         }
         // Occlusion: the first packet with a hit ends the ray's traversal.
-        if (ANYHIT && best_tri >= 0) sp = 0;
+        if (ANYHIT && best.tri >= 0) break;
+        have = mp_pop(stack, sp, best.t, cur);
       }
     }
 
-    a.t_out[ray] = best_t;
-    a.tri_out[ray] = best_tri;
+    a.t_out[ray] = best.t;
+    a.tri_out[ray] = best.tri;
     if (LEAN) {
-      a.u_out[ray] = best_u;
-      a.v_out[ray] = best_v;
+      a.u_out[ray] = best.u;
+      a.v_out[ray] = best.v;
     } else {
       // Shading normal of the winning hit from its i8 vertex normals,
       // interpolated once from (u, v), and its u16 material.
       float nx = 0.f, ny = 0.f, nz = 0.f;
       int mat = 0;
-      if (best_tri >= 0) {
-        const int pk = best_tri >> 3, lane = best_tri & 7;
+      if (best.tri >= 0) {
+        const int pk = best.tri >> 3, lane = best.tri & 7;
         const int* words = reinterpret_cast<const int*>(a.tri_q + (int64_t)pk * 16);
         float n[9];
 #pragma unroll
@@ -281,9 +250,9 @@ __global__ void __launch_bounds__(MP_BLOCK) traverse_q_kernel(const TraceArgsQ a
           const int byte = 9 * lane + k;
           n[k] = i8f(__ldg(words + 40 + (byte >> 2)), byte & 3) * MP_INV_127;
         }
-        const float ix_ = n[0] + best_u * (n[3] - n[0]) + best_v * (n[6] - n[0]);
-        const float iy_ = n[1] + best_u * (n[4] - n[1]) + best_v * (n[7] - n[1]);
-        const float iz_ = n[2] + best_u * (n[5] - n[2]) + best_v * (n[8] - n[2]);
+        const float ix_ = n[0] + best.u * (n[3] - n[0]) + best.v * (n[6] - n[0]);
+        const float iy_ = n[1] + best.u * (n[4] - n[1]) + best.v * (n[7] - n[1]);
+        const float iz_ = n[2] + best.u * (n[5] - n[2]) + best.v * (n[8] - n[2]);
         const float inv_len = rsqrtf(fmaxf(ix_ * ix_ + iy_ * iy_ + iz_ * iz_, 1e-30f));
         nx = ix_ * inv_len;
         ny = iy_ * inv_len;
@@ -341,12 +310,12 @@ const char* mp_error_string(int err) { return cudaGetErrorString((cudaError_t)er
 
 // K3. mode 0: full closest-hit, out_a = normal (B*P*3 f32), mat_out (B*P
 // i32), out_b unused; mode 1: lean closest-hit, out_a = u, out_b = v; mode 2:
-// lean any-hit, as mode 1. `root_box` is 6 f32 in device memory;
-// `live_packets` is one i32 in device memory or null. Launches on `stream`
+// lean any-hit, as mode 1. `node_frame` is (N, 8) f32, a row for each row of
+// `node_q`; `live_packets` is one i32 in device memory or null. Launches on `stream`
 // and returns the launch's cudaError_t (0 on success). `counters` is (B, 3)
 // i32, zeroed by the caller.
-int mp_trace_packets_q(const void* node_q, const void* tri_q, int root,
-                       const void* root_box, const void* live_packets,
+int mp_trace_packets_q(const void* node_q, const void* tri_q, const void* node_frame, int root,
+                       const void* live_packets,
                        const void* rays9, int64_t n_rays, int P, int stack_size,
                        float t_max, int mode, void* t_out, void* tri_out,
                        void* out_a, void* out_b, void* mat_out, void* counters,
@@ -354,8 +323,8 @@ int mp_trace_packets_q(const void* node_q, const void* tri_q, int root,
   TraceArgsQ a{};
   a.node_q = (const int4*)node_q;
   a.tri_q = (const int4*)tri_q;
+  a.node_frame = (const float4*)node_frame;
   a.root = root;
-  a.root_box = (const float*)root_box;
   a.live_packets = (const int*)live_packets;
   a.rays9 = (const float*)rays9;
   a.n_rays = n_rays;

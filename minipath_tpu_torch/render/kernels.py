@@ -18,7 +18,7 @@ use by ``utils/cuda_build.py`` and called through ctypes):
 The contracts are the TPU kernels'; their layout is not. The TPU kernels walk
 one scalar stack per 128-lane (K1) or 2048-lane (K2) packet of rays in SMEM,
 with the scene resident in VMEM. Here one thread traces one ray with its own
-stack of ``(link, t_entry)`` pairs in local memory (capacity
+stack of 8-byte ``(link, t_entry)`` entries in local memory (capacity
 :data:`STACK_CAPACITY`), and reads node and triangle rows straight from
 device memory through the read-only cache. Per ray, the rules are K1's: the
 slab test with ``1/d`` clamped to +-1e30, children pushed far-first so the
@@ -31,11 +31,21 @@ exact ties. In any-hit mode a ray stops after the first 8-triangle packet in
 which it has a hit under ``t_max``; the TPU kernel's packet-wide stack drop
 has no per-ray counterpart.
 
-What bounds them on an H100: divergent, latency-bound global loads of node
-rows (192 B) and triangle rows (320 B). Neighbouring threads walk different
-paths, so their loads do not coalesce and a warp waits for the slowest ray.
-Speeding them up is work for later: sorting rays by origin and direction,
-wider or compressed nodes, and persistent threads that refill idle lanes.
+What bounds them on an H100: neighbouring threads walk different paths, so a
+warp's 32 loads go to 32 rows, each load costs the L1 about one
+pass a thread, and a warp waits for its slowest ray. The threads request
+224 B an inner visit and 288 B a packet test, terabytes a second in all,
+which L1 and L2 serve: load slots and cache bandwidth run short beside
+latency. The loop therefore loads 16 bytes at a time (a node's boxes as 12
+``float4``, a packet's vertex words as 18, two lanes' worth at a time),
+keeps nothing but the stack in local memory (the hit children are sorted by
+insertion straight into the stack, in the order :func:`push_ranks` states;
+the nearest child stays in registers and is visited next without a round
+trip through the stack), and lets a ray walk through inner nodes until it
+reaches a leaf, so that a warp's rays meet at the leaf part. The per-ray
+order of visits is the plain version's throughout. What is left for later:
+sorting rays by origin and direction, the fused-multiply-add build, and
+persistent threads that refill idle lanes.
 
 The counters differ in meaning from the TPU kernels': ``overflow``,
 ``inner_visits`` and ``leaf_tests`` are sums over the packet's rays of
@@ -255,6 +265,8 @@ def _check(scene, rays9: torch.Tensor, stack_size: int, rows) -> None:
         raise ValueError(f"stack_size {stack_size} outside [1, {STACK_CAPACITY}]")
     for name, dtype, width in rows:
         a = getattr(scene, name)
+        if a is None:
+            raise ValueError(f"scene.{name} is missing")
         if a.device != rays9.device:
             raise ValueError(f"scene.{name} is on {a.device}, rays9 on {rays9.device}")
         if a.dtype != dtype or a.dim() != 2 or a.shape[1] != width or not a.is_contiguous():
@@ -482,6 +494,24 @@ def _launch_pt(scene, rays9, stack_size, t_max, live_packets, anyhit, roots) -> 
         t=t, tri=tri, u=u, v=v,
         overflow=counters[:, 0], inner_visits=counters[:, 1], leaf_tests=counters[:, 2],
     )
+
+
+def push_ranks(t1: torch.Tensor, hit: torch.Tensor) -> torch.Tensor:
+    """The push order of an inner node's hit children, as a rank: for
+    ``(k, 8)`` entry distances ``t1`` and the mask ``hit`` of the children a
+    ray hits, the ``(k, 8)`` int64 rank of each hit child among its node's
+    hit children, -1 for a missed child. A child's rank is the number of hit
+    children that are farther, or equally far with a smaller child index, and
+    child ``c`` belongs at ``stack[sp + rank[c]]``: farthest first, stable in
+    child order, so that the nearest pops first and, where the stack is
+    short, the nearest are the first to be dropped. The kernels build this
+    order by insertion into the stack (``csrc/traverse_common.cuh``), and
+    :func:`_traverse_reference` by a stable descending sort."""
+    c = torch.arange(8, device=t1.device)
+    other, own = t1[:, None, :], t1[:, :, None]  # [k, child, other child]
+    before = (other > own) | ((other == own) & (c[None, None, :] < c[None, :, None]))
+    rank = (before & hit[:, None, :]).sum(dim=-1)
+    return torch.where(hit, rank, torch.full_like(rank, -1))
 
 
 def _traverse_reference(scene, rays9, *, stack_size, t_max, live_packets, anyhit=False, roots=None, touched=None):

@@ -11,9 +11,12 @@ for ``sm_90a``, its own library, built by ``nvcc`` at first use), launched
 by :func:`trace_packets_q` in three modes: full closest-hit (``KernelHits``,
 as K1), lean closest-hit and lean any-hit (``PTHits``, as K2).
 
-Per ray the rules are K1's (``render/kernels.py``); the stack entry carries
-the decompressed box of its node beside the link and entry distance, which
-is the frame its children, or its triangles, decompress against. The TPU
+Per ray the rules are K1's (``render/kernels.py``), and so is the 8-byte
+stack entry, a link and an entry distance. The box a node's children, or a
+leaf's triangles, decompress against is not carried on the stack: it is read
+where it lives, an inner node's from its ``node_frame`` row and a leaf's
+from words 58..63 of its packets' rows, both derived once at scene
+preparation (:func:`quantized_scene_from_numpy`). The TPU
 kernel's octant child order and its missing pop re-prune exist for its
 2048-lane shared stack; a thread with its own stack needs neither, so K3
 agrees with the JAX kernel except at exact ties and ulps of fused
@@ -64,6 +67,9 @@ _NULL = L.NULL_LINK
 # csrc/traverse_q.cu.
 _INV_U16 = float(np.float32(1.0 / 65535.0))
 _INV_127 = float(np.float32(1.0 / 127.0))
+# Words of a triangle row that hold the leaf's own box as float bits (min xyz,
+# max xyz); unused by the quantizer (scene/bvh/quantize.py).
+LEAF_FRAME_WORDS = slice(58, 64)
 _MODES = {(False, False): 0, (True, False): 1, (True, True): 2}
 _MODE_NAMES = ("full", "closest", "anyhit")
 
@@ -76,6 +82,9 @@ class QuantizedScene(NamedTuple):
     tri_q: torch.Tensor  # (M, 64) i32: u16 vertices, u16 materials, i8 normals
     root: int  # encoded root link
     root_box: torch.Tensor  # (6,) f32 stored scene box (min, max): the root's frame
+    # (N, 8) f32: every inner node's own decompressed box (min xyz, max xyz,
+    # two words of padding), the frame of its children's u16 boxes.
+    node_frame: torch.Tensor
 
     @property
     def device(self) -> torch.device:
@@ -92,6 +101,8 @@ class QPTScene(NamedTuple):
     root: int
     root_box: torch.Tensor
     shade_flat: torch.Tensor  # (M*8, 20) f16, as PTScene
+    # As QuantizedScene; the kernel needs it, the plain version does not.
+    node_frame: torch.Tensor | None = None
 
     @property
     def device(self) -> torch.device:
@@ -102,16 +113,31 @@ def quantized_scene_from_numpy(fields, device) -> QuantizedScene:
     """:class:`QuantizedScene` on ``device`` from a mapping with the fields
     ``node_q``, ``tri_q``, ``root`` and ``root_box`` of
     ``scene/bvh/quantize.py``'s ``QuantizedSceneArrays`` (array-likes; the
-    JAX package's arrays of the same name carry over unchanged)."""
+    JAX package's arrays of the same name carry over unchanged).
+
+    Two things are derived here, on ``device``, with the kernel's float32
+    steps (:func:`decompressed_boxes`): ``node_frame``, and each leaf's own
+    box, written as float bits into words 58..63 of every packet of that
+    leaf in the device copy of ``tri_q``. The quantizer leaves those six
+    words unused, so a leaf's frame costs no byte and arrives with the row.
+    With both, a stack entry of K3 is a link and an entry distance, as K2's:
+    a BVH is a tree, so a node's box is a function of the node alone."""
 
     def tensor(name, dtype):
         return torch.from_numpy(np.array(fields[name], dtype=dtype, copy=True)).to(device)
 
+    node_q = tensor("node_q", np.int32).reshape(-1, 32).contiguous()
+    tri_q = tensor("tri_q", np.int32).reshape(-1, 64).contiguous()
+    root = int(np.asarray(fields["root"]).reshape(()))
+    root_box = tensor("root_box", np.float32).reshape(6).contiguous()
+    _, node_frame, leaf_box = decompressed_boxes(node_q, tri_q.shape[0], root, root_box)
+    tri_q[:, LEAF_FRAME_WORDS] = leaf_box.view(torch.int32)
     return QuantizedScene(
-        node_q=tensor("node_q", np.int32).reshape(-1, 32).contiguous(),
-        tri_q=tensor("tri_q", np.int32).reshape(-1, 64).contiguous(),
-        root=int(np.asarray(fields["root"]).reshape(())),
-        root_box=tensor("root_box", np.float32).reshape(6).contiguous(),
+        node_q=node_q,
+        tri_q=tri_q,
+        root=root,
+        root_box=root_box,
+        node_frame=torch.cat([node_frame, torch.zeros_like(node_frame[:, :2])], dim=1).contiguous(),
     )
 
 
@@ -127,7 +153,7 @@ def prepare_scene_qpt(bvh: BvhArrays, device) -> QPTScene:
     built first, so its material-id check (``< 2048``) comes before any
     quantizing."""
     shade_flat = build_shade_flat(from_numpy(bvh._asdict(), device))
-    return QPTScene(*prepare_scene_quantized(bvh, device), shade_flat=shade_flat)
+    return QPTScene(**prepare_scene_quantized(bvh, device)._asdict(), shade_flat=shade_flat)
 
 
 # ---- the plain version ----------------------------------------------------------
@@ -153,18 +179,19 @@ def _dec(lo: torch.Tensor, hi: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return lo + q.to(torch.float32) * scale
 
 
-def decompressed_kernel_scene(scene) -> KernelScene:
-    """K1's rows decompressed from a quantized scene, with the kernel's
-    float32 arithmetic: node boxes level by level from the stored root box,
-    each leaf's vertices against its decompressed box, the edges ``e1 =
-    v1 - v0`` and ``e2 = v2 - v0`` as the kernel subtracts them, the i8
-    normals times ``1/127`` and the u16 materials."""
-    node_q, tri_q = scene.node_q, scene.tri_q
+def decompressed_boxes(node_q: torch.Tensor, n_packets: int, root: int, root_box: torch.Tensor):
+    """Every box of a quantized tree, decompressed level by level from the
+    stored root box with the kernel's float32 arithmetic (:func:`_dec`):
+    ``(child_box (N, 8, 6), node_frame (N, 6), leaf_box (n_packets, 6))``, the
+    boxes of each inner node's children, each inner node's own box, and for
+    each triangle packet the box of the leaf that holds it. Rows that the
+    root does not reach stay zero."""
     dev = node_q.device
-    N, M = node_q.shape[0], tri_q.shape[0]
-    links = node_q[:, 24:32].contiguous()
-    node_box = torch.zeros((N, 8, 6), dtype=torch.float32, device=dev)
-    leaf_box = torch.zeros((M, 6), dtype=torch.float32, device=dev)
+    N = node_q.shape[0]
+    links = node_q[:, 24:32]
+    child_box = torch.zeros((N, 8, 6), dtype=torch.float32, device=dev)
+    node_frame = torch.zeros((N, 6), dtype=torch.float32, device=dev)
+    leaf_box = torch.zeros((n_packets, 6), dtype=torch.float32, device=dev)
 
     def stamp_leaves(cl, box):
         """Packets ``idx .. idx+count`` of leaf links ``cl`` take ``box``."""
@@ -173,22 +200,38 @@ def decompressed_kernel_scene(scene) -> KernelScene:
             m = count > j
             leaf_box[idx[m] + j] = box[m]
 
-    root = torch.tensor([scene.root], dtype=torch.int32, device=dev)
-    root_box = scene.root_box.reshape(1, 6).to(torch.float32)
+    root = torch.tensor([root], dtype=torch.int32, device=dev)
+    root_box = root_box.reshape(1, 6).to(torch.float32)
     leaf = (root != _NULL) & ((root & L.COUNT_MASK) != 0)
     stamp_leaves(root[leaf], root_box[leaf])
     inner = (root != _NULL) & ~leaf
     frontier, frames = (root[inner] >> L.COUNT_BITS).long(), root_box[inner]
     while frontier.numel():
+        node_frame[frontier] = frames
         q = _u16(node_q[frontier, :24]).view(-1, 8, 6)
         lo, hi = frames[:, None, 0:3], frames[:, None, 3:6]
         child = torch.cat([_dec(lo, hi, q[..., 0:3]), _dec(lo, hi, q[..., 3:6])], dim=-1)
-        node_box[frontier] = child
+        child_box[frontier] = child
         cl = links[frontier]
         is_leaf = (cl != _NULL) & ((cl & L.COUNT_MASK) != 0)
         stamp_leaves(cl[is_leaf], child[is_leaf])
         is_inner = (cl != _NULL) & ~is_leaf
         frontier, frames = (cl[is_inner] >> L.COUNT_BITS).long(), child[is_inner]
+    return child_box, node_frame, leaf_box
+
+
+def decompressed_kernel_scene(scene) -> KernelScene:
+    """K1's rows decompressed from a quantized scene, with the kernel's
+    float32 arithmetic: node boxes level by level from the stored root box
+    (:func:`decompressed_boxes`), each leaf's vertices against its
+    decompressed box, the edges ``e1 = v1 - v0`` and ``e2 = v2 - v0`` as the
+    kernel subtracts them, the i8 normals times ``1/127`` and the u16
+    materials."""
+    node_q, tri_q = scene.node_q, scene.tri_q
+    dev = node_q.device
+    N, M = node_q.shape[0], tri_q.shape[0]
+    links = node_q[:, 24:32].contiguous()
+    node_box, _, leaf_box = decompressed_boxes(node_q, M, scene.root, scene.root_box)
 
     verts = _dec(leaf_box[:, None, None, 0:3], leaf_box[:, None, None, 3:6], _u16(tri_q[:, 0:36]).view(M, 8, 3, 3))
     v0 = verts[:, :, 0]
@@ -228,6 +271,7 @@ def trace_packets_q_reference(
 # ---- the kernel -----------------------------------------------------------------
 
 _ROWS = (("node_q", torch.int32, 32), ("tri_q", torch.int32, 64))
+_FRAME_ROWS = (("node_frame", torch.float32, 8),)  # the kernel's alone
 
 
 def trace_packets_q(
@@ -282,7 +326,7 @@ def load_library():
     if lib.mp_trace_packets_q.argtypes is None:
         vp, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
         lib.mp_trace_packets_q.argtypes = [
-            vp, vp, i32, vp, vp, vp, i64, i32, i32, f32, i32,
+            vp, vp, vp, i32, vp, vp, i64, i32, i32, f32, i32,
             vp, vp, vp, vp, vp, vp, vp,
         ]
         lib.mp_trace_packets_q.restype = i32
@@ -298,7 +342,10 @@ def _launch_q(scene, rays9, *, stack_size, t_max, live_packets, lean, anyhit):
     lib = load_library().lib
     B, _, P = rays9.shape
     dev = rays9.device
-    _aligned(scene.node_q, scene.tri_q, rays9)
+    _check(scene, rays9, stack_size, _FRAME_ROWS)
+    if scene.node_frame.shape[0] != scene.node_q.shape[0]:
+        raise ValueError("scene.node_frame must have one row for each row of scene.node_q")
+    _aligned(scene.node_q, scene.tri_q, scene.node_frame, rays9)
     live = _live_count(live_packets, dev)
     f32, i32 = torch.float32, torch.int32
     t = torch.empty((B, P), dtype=f32, device=dev)
@@ -321,8 +368,8 @@ def _launch_q(scene, rays9, *, stack_size, t_max, live_packets, lean, anyhit):
         err = lib.mp_trace_packets_q(
             scene.node_q.data_ptr(),
             scene.tri_q.data_ptr(),
+            scene.node_frame.data_ptr(),
             scene.root,
-            scene.root_box.data_ptr(),
             ptr(live),
             rays9.data_ptr(),
             B * P,

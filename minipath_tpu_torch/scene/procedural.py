@@ -95,6 +95,31 @@ def make_random_triangles(n: int, seed: int = 0, extent: float = 10.0, tri_size:
     return _mesh_from_soup(verts, faces)
 
 
+def make_tie_lattice(n: int = 3) -> MeshData:
+    """Exact ties, for the traversal's tie rules: ``n x n x 2`` unit cubes
+    that touch face to face, over a floor, with every triangle in the mesh
+    twice. Sibling boxes then repeat or share faces, so that a ray along an
+    axis enters several children at one distance, and every hit has a
+    coplanar duplicate at the same ``t``."""
+    cubes = [make_cube(1.0, (x, y, z)) for x in range(n) for y in range(n) for z in range(2)]
+    once = merge_meshes(cubes + [make_quad(2.0 * n + 2.0, -0.5)])
+    return merge_meshes([once, once])
+
+
+def tie_lattice_rays(n: int = 3, count: int = 2048, seed: int = 0):
+    """``(origins, directions)``, ``(count, 3)`` float32 each, for
+    :func:`make_tie_lattice`: half of them parallel to an axis from origins
+    on a quarter-unit grid (the ties), half at random."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-1.0, n, (count, 3)).astype(np.float32)
+    d = rng.normal(size=(count, 3)).astype(np.float32)
+    axis = np.arange(count) % 2 == 0
+    o[axis] = np.round(o[axis] * 4.0) / 4.0
+    d[axis] = np.eye(3, dtype=np.float32)[rng.integers(0, 3, int(axis.sum()))] * rng.choice(
+        np.array([-1.0, 1.0], np.float32), (int(axis.sum()), 1))
+    return o, d
+
+
 def merge_meshes(meshes) -> MeshData:
     tris, pos, nor, tex = [], [], [], []
     offset = 0

@@ -9,7 +9,8 @@ and :meth:`TriangleBvh.pt_scene` lay the arrays out for the traversal
 kernels on a chosen device.
 
 Two layouts exist: f32 (K1, K2) and the 16-bit quantized one (K3, about
-half the bytes). ``kernel_scene`` and ``pt_scene`` take the f32 layout unless
+half the bytes: :meth:`TriangleBvh.f32_scene_bytes` and
+:meth:`TriangleBvh.quantized_scene_bytes`). ``kernel_scene`` and ``pt_scene`` take the f32 layout unless
 its bytes exceed :data:`SCENE_BUDGET_BYTES`, as the JAX package's
 ``TriangleBvh.pallas_scene`` does against its VMEM budget; the choice is
 made from the array shapes, before either layout is built, and an error in
@@ -98,6 +99,14 @@ class TriangleBvh:
         M = self._build.arrays.tri_packets.shape[0]
         return N * (48 + 8) * 4 + M * (80 * 4 + (8 * 20 * 2 if pt else 72 * 4))
 
+    def quantized_scene_bytes(self, pt: bool = False) -> int:
+        """Bytes of the quantized layout: node rows of 32 words and their
+        ``node_frame`` rows of 8, triangle rows of 64 words, plus, for the
+        path tracer, the 8 x 20 f16 shading rows of each packet."""
+        N = self._build.arrays.node_child_links.shape[0]
+        M = self._build.arrays.tri_packets.shape[0]
+        return N * (32 + 8) * 4 + M * (64 * 4 + (8 * 20 * 2 if pt else 0))
+
     def _quantized(self, device: torch.device, pt: bool) -> bool:
         budget = scene_budget_bytes(device)
         return budget is not None and self.f32_scene_bytes(pt) > budget
@@ -153,7 +162,7 @@ class TriangleBvh:
         key = (device, "pt")
         if key not in self._quantized_scenes:
             shade_flat = build_shade_flat(self.arrays(device))
-            self._quantized_scenes[key] = QPTScene(*self.quantized_scene(device), shade_flat=shade_flat)
+            self._quantized_scenes[key] = QPTScene(**self.quantized_scene(device)._asdict(), shade_flat=shade_flat)
         return self._quantized_scenes[key]
 
     @property

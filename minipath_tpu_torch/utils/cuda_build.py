@@ -4,8 +4,9 @@ The kernels have a plain C interface (pointers, ints and the stream), so
 each source (``csrc/traverse.cu``, ``csrc/traverse_q.cu``) is compiled by
 ``nvcc`` alone, without PyTorch's headers, into a library of its own in
 ``minipath_tpu_torch/_build/``, and loaded with ``ctypes``. A build is keyed
-on a hash of the source and the flags: an unchanged source is built once per
-checkout, at its first use. The target is Hopper (``sm_90a``).
+on a hash of the source, the headers it includes from its own directory, and
+the flags: an unchanged source is built once per checkout, at its first use.
+The target is Hopper (``sm_90a``).
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -67,6 +69,23 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: install the CUDA toolkit or set CUDA_HOME")
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.MULTILINE)
+
+
+def source_bytes(source: Path, _seen=None) -> bytes:
+    """``source``'s bytes followed by those of every header it includes by a
+    quoted name, headers of headers too, each once: what a build's key must
+    cover, or an edited header would go on running an old library."""
+    seen = set() if _seen is None else _seen
+    seen.add(source)
+    data = source.read_bytes()
+    for name in _INCLUDE.findall(data):
+        header = (source.parent / name.decode()).resolve()
+        if header not in seen:
+            data += source_bytes(header, seen)
+    return data
+
+
 def load_cuda_library(source: Path) -> CudaLibrary:
     """Compile ``source`` (if its build is missing) and load it. Each source
     has its own lock, so that threads build different sources at once.
@@ -87,7 +106,7 @@ def load_cuda_library(source: Path) -> CudaLibrary:
             _libraries[given] = _libraries[source]
             return _libraries[source]
         digest = hashlib.sha256(
-            source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+            source_bytes(source) + " ".join(NVCC_FLAGS).encode()
         ).hexdigest()[:16]
         out = BUILD_DIR / f"lib{source.stem}-{digest}.so"
         log_path = out.with_suffix(".log")

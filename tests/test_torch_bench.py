@@ -110,8 +110,18 @@ def test_last_line_has_the_jax_keys(tiny):
     last = lines[-1]
     assert rc == 0 and list(last) == JAX_KEYS
     assert last["metric"] == "atrium_obj_1080p_64spp_throughput" and last["unit"] == "Mrays/s"
-    assert last["value"] > 0 and last["vs_baseline"] == round(last["value"] / bench.TARGET_MRAYS, 3)
-    assert all(isinstance(last[k], float) and last[k] > 0 for k in JAX_KEYS[4:])
+    # The bench rounds a rate to two or three decimals, as the JAX bench does,
+    # so a few thousand rays on a loaded host can round to 0.0: a rate is held
+    # to >= 0, and the seconds behind it, which cannot round away, to > 0.
+    by_rung = {line["rung"]: line for line in lines[:-1]}
+    assert by_rung["f32"]["mean_s"] > 0 and last["value"] == by_rung["f32"]["mrays_per_s"] >= 0
+    assert last["vs_baseline"] == round(last["value"] / bench.TARGET_MRAYS, 3)
+    for k in JAX_KEYS[4:]:
+        assert isinstance(last[k], float), k
+        assert last[k] > 0 if k.endswith("_s") and not k.endswith("_per_s") else last[k] >= 0, k
+    for name in ("wavefront", "nee", "nee_capped"):
+        assert by_rung[f"pt_{name}"][f"{name}_mean_s"] > 0, name
+    assert by_rung["pt_big"]["mean_s"] > 0
 
 
 def test_budget_stops_the_run_and_names_the_skipped_rungs(tiny, monkeypatch):
@@ -146,12 +156,12 @@ def test_a_failing_rung_leaves_the_later_rungs_running(tiny, monkeypatch, tmp_pa
     for name in RUNG_NAMES:
         assert ("error" in by_rung[name]) == (name in ("big_scene", "pt_big")), name
     assert by_rung["big_scene"]["error"] == "OSError('disk full')"
-    assert "pt_big_scene_mpaths_per_s" not in lines[-1] and lines[-1]["value"] > 0
+    assert "pt_big_scene_mpaths_per_s" not in lines[-1] and lines[-1]["value"] >= 0
     artifact = json.loads(extra.read_text())
     assert artifact["big_scene"] == {"error": "OSError('disk full')"}
     assert artifact["pt_big_scene"] == {"error": "OSError('disk full')"}
     assert artifact["f32_kernel"]["n"] == 2 and set(artifact["scene_mb"]) == {"f32", "quantized"}
-    assert "vmem_mb" not in json.dumps(artifact) and artifact["pt"]["nee_capped_mpaths_per_s"] > 0
+    assert "vmem_mb" not in json.dumps(artifact) and artifact["pt"]["nee_capped_mpaths_per_s"] >= 0
 
 
 @pytest.mark.parametrize("fault", ["hits dropped", "t off by 5%"])

@@ -103,6 +103,30 @@ def test_overflow_t_max_and_live_prefix_match(cuda, atrium):
     assert int(kernels.trace_packets(scene, r9, stack_size=2).overflow.min()) > 0
 
 
+def _tie_rays9(device, B=8):
+    o, d = procedural.tie_lattice_rays(count=B * 256, seed=4)
+    rays = make_rays(torch.from_numpy(o).view(B, 256, 3).to(device), torch.from_numpy(d).view(B, 256, 3).to(device))
+    return kernels.rays_to_rays9(rays)
+
+
+@pytest.mark.parametrize("stack_size", [1, 2, 3, 4, 5, 6])
+@pytest.mark.parametrize("scene_name", ["ties", "atrium"])
+def test_small_stacks_and_exact_ties_match_bit_for_bit(cuda, atrium, scene_name, stack_size):
+    """Duplicated boxes, coplanar duplicate triangles and stacks that
+    overflow: what the ordered push, the nearest child kept in registers
+    and the inner-first loop could break unseen elsewhere."""
+    bvh = atrium if scene_name == "atrium" else TriangleBvh.build(procedural.make_tie_lattice(), leaf_max=8)
+    scene = bvh.kernel_scene(cuda)
+    r9 = _tie_rays9(cuda) if scene_name == "ties" else _incoherent(bvh, cuda, B=8, seed=6)
+    for kw in ({}, {"live_packets": 5}, {"t_max": 2.5}):
+        got = kernels.trace_packets(scene, r9, stack_size=stack_size, **kw)
+        want = kernels.trace_packets_reference(scene, r9, stack_size=stack_size, **kw)
+        _assert_same(got, want)
+    assert (got.tri >= 0).any()
+    if stack_size <= 2:
+        assert int(kernels.trace_packets(scene, r9, stack_size=stack_size).overflow.sum()) > 0
+
+
 def test_empty_scene_and_odd_packet_size(cuda, atrium):
     empty = TriangleBvh.build(MeshData()).kernel_scene(cuda)
     r9 = _incoherent(atrium, cuda, B=3, P=100)

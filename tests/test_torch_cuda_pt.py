@@ -121,6 +121,42 @@ def test_roots_match_plain_version(cuda, atrium):
     assert torch.all(got.tri[7] == -1) and (got.tri[:7] >= 0).any()
 
 
+def _tie_scene_and_rays(device, B=8):
+    from minipath_tpu_torch.geometry.ray import make_rays
+
+    bvh = TriangleBvh.build(procedural.make_tie_lattice(), leaf_max=8)
+    o, d = procedural.tie_lattice_rays(count=B * 256, seed=4)
+    rays = make_rays(torch.from_numpy(o).view(B, 256, 3).to(device), torch.from_numpy(d).view(B, 256, 3).to(device))
+    return bvh, kernels.rays_to_rays9(rays)
+
+
+@pytest.mark.parametrize("stack_size", [1, 2, 3, 4, 5, 6])
+@pytest.mark.parametrize("anyhit", [False, True], ids=["closest", "anyhit"])
+@pytest.mark.parametrize("scene_name", ["ties", "atrium"])
+def test_small_stacks_and_exact_ties_match_bit_for_bit(cuda, atrium, scene_name, anyhit, stack_size):
+    """Duplicated boxes, coplanar duplicate triangles and stacks that
+    overflow, with per-packet roots and with a live prefix: what the
+    ordered push, the nearest child kept in registers and the inner-first
+    loop could break unseen elsewhere."""
+    if scene_name == "ties":
+        bvh, r9 = _tie_scene_and_rays(cuda)
+    else:
+        bvh, r9 = atrium[0], _bounce_rays(atrium, cuda, B=8, P=256, seed=3)
+    scene = bvh.pt_scene(cuda)
+    links = bvh.host_arrays.node_child_links[int(bvh.host_arrays.root) >> L.COUNT_BITS]
+    children = [int(c) for c in links if c != L.NULL_LINK]
+    B = r9.shape[0]
+    roots = torch.tensor([children[i % len(children)] for i in range(B - 1)] + [L.NULL_LINK], dtype=torch.int32,
+                         device=cuda)
+    live = torch.tensor([5], dtype=torch.int32, device=cuda)
+    for kw in ({}, {"roots": roots}, {"live_packets": live}, {"t_max": 2.5}, {"roots": roots, "live_packets": 3}):
+        got = kernels.trace_packets_pt(scene, r9, stack_size=stack_size, anyhit=anyhit, **kw)
+        want = kernels.trace_packets_pt_reference(scene, r9, stack_size=stack_size, anyhit=anyhit, **kw)
+        _assert_same(got, want)
+    if stack_size <= 2:
+        assert int(kernels.trace_packets_pt(scene, r9, stack_size=stack_size).overflow.sum()) > 0
+
+
 def test_sobol_frame_on_card_matches_cpu(cuda, atrium):
     bvh, dicts = atrium
     kw = dict(width=32, height=32, spp=4, bounces=3, samples_per_packet=4, sobol=True, shadow_rr=False,

@@ -117,6 +117,53 @@ def test_tiny_stack_overflow_matches_plain_version(cuda, atrium):
     assert int(got.overflow.sum()) > 0
 
 
+def _tie_scene_and_rays(device, B=8):
+    bvh = TriangleBvh.build(procedural.make_tie_lattice(), leaf_max=8)
+    o, d = procedural.tie_lattice_rays(count=B * 256, seed=4)
+    rays = make_rays(torch.from_numpy(o).view(B, 256, 3).to(device), torch.from_numpy(d).view(B, 256, 3).to(device))
+    return bvh, kernels.rays_to_rays9(rays)
+
+
+@pytest.mark.parametrize("stack_size", [1, 2, 3, 4, 5, 6])
+@pytest.mark.parametrize("mode", ["full", "closest", "anyhit"])
+@pytest.mark.parametrize("scene_name", ["ties", "atrium"])
+def test_small_stacks_and_exact_ties_match_bit_for_bit(cuda, atrium, scene_name, mode, stack_size):
+    """Duplicated boxes, coplanar duplicate triangles and stacks that
+    overflow, with a live prefix: what the ordered push, the nearest child
+    kept in registers, the frames read from ``node_frame`` and the leaf rows,
+    and the inner-first loop could break unseen elsewhere."""
+    if scene_name == "ties":
+        bvh, r9 = _tie_scene_and_rays(cuda)
+    else:
+        bvh, r9 = atrium[0], _incoherent(atrium[0], cuda, B=8, P=256, seed=6)
+    scene = bvh.quantized_pt_scene(cuda)
+    lean, anyhit = mode != "full", mode == "anyhit"
+    fields = (("t", "tri", "u", "v") if lean else ("t", "tri", "material")) + _COUNTERS
+    live = torch.tensor([5], dtype=torch.int32, device=cuda)
+    for kw in ({}, {"live_packets": live}, {"t_max": 2.5}):
+        got = kernels_q.trace_packets_q(scene, r9, stack_size=stack_size, lean=lean, anyhit=anyhit, **kw)
+        want = kernels_q.trace_packets_q_reference(scene, r9, stack_size=stack_size, lean=lean, anyhit=anyhit, **kw)
+        _assert_same(got, want, fields)
+        if not lean:
+            torch.testing.assert_close(got.normal, want.normal, rtol=0, atol=1e-4)
+    if stack_size <= 2:
+        assert int(kernels_q.trace_packets_q(scene, r9, stack_size=stack_size).overflow.sum()) > 0
+
+
+def test_a_leaf_at_the_root_takes_its_frame_from_its_row(cuda):
+    """A scene of one leaf has no inner node: the root's frame is the stored
+    scene box, riding in the leaf's own row."""
+    bvh = TriangleBvh.build(procedural.make_quad(4.0))
+    scene = bvh.quantized_scene(cuda)
+    rng = np.random.default_rng(8)
+    o = np.concatenate([rng.uniform(-3.0, 3.0, (2, 256, 2)), np.full((2, 256, 1), 3.0)], axis=-1).astype(np.float32)
+    d = np.concatenate([rng.normal(0.0, 0.3, (2, 256, 2)), np.full((2, 256, 1), -1.0)], axis=-1).astype(np.float32)
+    r9 = kernels.rays_to_rays9(make_rays(torch.from_numpy(o).to(cuda), torch.from_numpy(d).to(cuda)))
+    got = kernels_q.trace_packets_q(scene, r9, stack_size=4)
+    _assert_same(got, kernels_q.trace_packets_q_reference(scene, r9, stack_size=4), ("t", "tri", "material") + _COUNTERS)
+    assert (got.tri >= 0).any() and int(got.inner_visits.sum()) == 0
+
+
 def test_frames_on_card_match_cpu(cuda, atrium):
     """The parity frame through ``trace_scene`` and a Sobol path-traced
     frame with NEE through ``make_pt_tracer``, both over the quantized

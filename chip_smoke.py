@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (``minipath_tpu_torch``) on one NVIDIA GPU.
 
-Run from the root of a checkout: ``python3 chip_smoke.py``. Thirteen phases,
+Run from the root of a checkout: ``python3 chip_smoke.py``. Sixteen phases,
 each printing its lines as it finishes; any failure raises and the script
 exits non-zero. There is no CPU path: without a CUDA device it fails at once.
 
@@ -22,6 +22,10 @@ exits non-zero. There is no CPU path: without a CUDA device it fails at once.
    the rate that makes; phases 6 and 10 do the same.
 4. Main path: ``render()`` of the atrium at 1920x1080 @ 64 spp in frame
    mode, once cold and once warm; the warm frame counts kernel launches.
+   Then the same frame over two native-built trees of the same mesh: the
+   CLI's (leaves of up to 56 triangles, as the Python build's) and the
+   bench's (up to 24), which splits the time between this frame and the
+   bench's ``f32`` frame into tree and path.
 5. CLI: ``python -m minipath_tpu_torch.cli --device cuda`` writes a PNG.
 
 Phases 6-9 drive the path tracer on the path-traced atrium (the same
@@ -69,6 +73,32 @@ on bench.py's Sponza-scale atrium (``make_atrium(600_000)``, leaves of up to
     counted); then ``python -m minipath_tpu_torch.bench --device cuda`` in a
     subprocess under a time budget, which must exit 0, print every rung's
     line and end with the JAX bench's keys.
+
+Phases 14-16 drive the post-process and the interactive surface. They run
+after phase 9, while the path-traced atrium is on the card:
+
+14. Denoise and AOVs at full width, on phase 7's path-traced atrium:
+    ``render_frame_pt`` at 1920x1080 @ 4 spp with its variance;
+    ``render_aux`` through ``make_pt_tracer`` (K2) and through
+    ``make_full_tracer`` (K1), launches counted, hit masks equal and normals
+    within 2e-3, and through ``make_full_tracer`` over the tree's
+    ``QuantizedScene`` (K3 in full mode) against K1's by share of pixels; the
+    same Sobol path-traced frame over the three tracers, host syncs counted; ``atrous_denoise`` fixed-sigma and variance-guided, timed
+    warm; the card's output against the CPU's on a 256x256 crop; the
+    filtered frame's RMSE against phase 7's 64-spp frame below the raw 4-spp
+    frame's, its mean within 5%. Then the CLI with ``--denoise --aov``.
+15. The GUI's controllers, headless: ``tools.bench_gui``'s ``main`` on the
+    atrium at 2048x1536 (preview 1 spp, full 2 spp, two camera moves); a
+    ``GuiController`` whose final image equals ``render()``'s in tile mode
+    for the same seed bit for bit and its frame-mode image by mean and
+    coverage (frame mode draws its jitter in one dispatch of all tiles, tile
+    mode in twelve of 64, so those two cannot be equal); an ``abort()`` in
+    the middle of a 64-spp render; then the progressive path-traced
+    viewport of ``_make_pt_controller`` at 1024x768: 64 passes with the
+    guide buffers, one ``display_image()`` with the filter, a camera move.
+16. The analytic sphere: ``render()`` of ``Scene(Sphere())`` at 1920x1080 @
+    64 spp in frame mode; no kernel launches; mean and coverage against the
+    CPU's frame at 256x144.
 
 ``python3 chip_smoke.py --kernels-only`` runs phases 1, 2, 3, 6 and 10 alone:
 the traversal kernels against their plain versions, with their times, bounds
@@ -121,6 +151,21 @@ FRAME_PIXEL_ATOL, FRAME_PIXEL_SHARE, FRAME_MEAN_RTOL = 1e-3, 0.99, 5e-3
 LAYOUT_MEAN_RTOL = 0.01
 # bench.py's Sponza-scale scene.
 BIG_TRIANGLES = 600_000
+# Phase 14: the filter on the card against the CPU on a crop (the card's exp
+# and pow differ from the CPU's in the last bits, which the power of 128 on
+# the normal term scales up and four iterations compound), the two aux
+# traces against each other (f16 normals against f32), the filtered frame's
+# mean against the raw one's.
+DENOISE_SPP, DENOISE_CROP = 4, 256
+DENOISE_RTOL, DENOISE_ATOL, DENOISE_SHARE, DENOISE_MAX_ABS = 1e-4, 1e-5, 0.999, 1e-3
+AUX_NORMAL_ATOL, DENOISE_MEAN_RTOL = 2e-3, 0.05
+# K3's first hits against K1's on the same rays (the quantized vertices move a
+# silhouette by a fraction of a pixel): the share of pixels that must agree.
+AUX_Q_DEPTH_RTOL, AUX_Q_NORMAL_ATOL, AUX_Q_SHARE = 1e-3, 1e-2, 0.99
+# Phase 15: the reference GUI benchmark's size; the viewport's.
+GUI_SIZE, GUI_ABORT_SPP, VIEWPORT_SIZE, VIEWPORT_PASSES = (2048, 1536), 64, (1024, 768), 64
+# Phases 15 and 16: two renders of one scene whose jitter differs.
+STAT_RTOL = 5e-3
 
 # The card's published peaks (NVIDIA H100 SXM data sheet, 700 W): float32
 # outside the tensor cores, and HBM bandwidth.
@@ -403,14 +448,14 @@ def phase_kernel(bvh, device):
     return results
 
 
-def phase_main_path(bvh, device, smi):
+def phase_main_path(bvh, device, smi, native_trees=()):
     from minipath_tpu_torch import RenderSettings, Scene, render
     from minipath_tpu_torch.render import kernels
 
     settings = RenderSettings(TILE, SPP, (WIDTH, HEIGHT))
     camera = bench_camera()
 
-    def frame():
+    def frame(bvh=bvh):
         p = render(Scene(bvh), camera, settings, device=device)  # frame mode: no callbacks
         p.wait()
         img = p.image()
@@ -438,6 +483,21 @@ def phase_main_path(bvh, device, smi):
         f"kernel launches {launches} | alpha coverage {coverage:.4f}, mean value "
         f"{img[..., 0].mean() / 255:.4f} | warm == cold image: {np.array_equal(img, img_cold)} | "
         f"phases {json.dumps(timers)}")
+    # The same mesh built by the native C++ code, as the CLI and the bench build it.
+    for label, tree in native_trees:
+        frame(tree)
+        times = []
+        for _ in range(3):
+            p_n, img_n = frame(tree)
+            times.append(p_n.elapsed())
+        stats = tree.statistics()
+        log("4 main path", f"render() over {label} ({stats['inner_nodes']} inner nodes, max depth "
+            f"{stats['max_depth']}, leaf fill {stats['leaf_fill_triangles']}): warm frames "
+            f"{' '.join(f'{t:.4f}' for t in times)} s against {seconds:.4f} s over the Python-built tree | alpha "
+            f"coverage {float((img_n[..., 3] > 0).mean()):.4f}, mean value {img_n[..., 0].mean() / 255:.4f} | phases "
+            f"{json.dumps(p_n.timings().summary())}")
+        if abs(float(img_n[..., 0].mean()) - float(img[..., 0].mean())) > STAT_RTOL * float(img[..., 0].mean()):
+            raise AssertionError(f"the frame over {label} is not the Python-built tree's")
     return launches
 
 
@@ -701,7 +761,7 @@ def phase_pt_main_path(parts, device, smi):
         f"launches {dict(kernels.trace_packets_pt.launches)} | peak device memory "
         f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB | image mean {img2[..., :3].mean():.5f}, "
         f"all finite")
-    return sum(launches.values()), float(img[..., :3].mean())
+    return sum(launches.values()), img
 
 
 def phase_card_vs_cpu(bvh, dicts, device, quantized=False, phase="8 card vs cpu"):
@@ -750,6 +810,375 @@ def phase_pt_cli():
         said = [ln for ln in proc.stderr.splitlines() if ln.startswith("path traced")]
         log("9 pt cli", f"exit 0 in {time.perf_counter() - t0:.1f}s, {out.name} {img.shape}, mean "
             f"{img[..., :3].mean():.1f}/255 | {' '.join(said)}")
+
+def kernel_launch_counts() -> dict:
+    """Every traversal wrapper's launch count, flattened."""
+    from minipath_tpu_torch.render import kernels, kernels_q
+
+    return {"K1": kernels.trace_packets.launches,
+            **{f"K2 {m}": n for m, n in kernels.trace_packets_pt.launches.items()},
+            **{f"K3 {m}": n for m, n in kernels_q.trace_packets_q.launches.items()}}
+
+
+def phase_denoise(pt_bvh, parts, ref64, device, smi):
+    """Phase 14: a 4-spp frame with its variance, the guide buffers through
+    both tracers, the filter in both modes (timed, and against the CPU on a
+    crop), and what the filter buys against phase 7's 64-spp frame."""
+    from minipath_tpu_torch.render.denoise import atrous_denoise, render_aux
+    from minipath_tpu_torch.render.wavefront import make_full_tracer, render_frame_pt
+
+    scene, table, lights, tracer, shadow = parts
+    sampler, env = frame_inputs(device, PT_WIDTH, PT_HEIGHT)
+
+    def noisy_frame(seed):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        return render_frame_pt(
+            tracer, scene, table, sampler, gen, width=PT_WIDTH, height=PT_HEIGHT, spp=DENOISE_SPP,
+            bounces=PT_BOUNCES, env=env, samples_per_packet=2, lights=lights, shadow_tracer=shadow,
+            nee_max_depth=1, return_variance=True,
+        )
+
+    noisy_frame(10)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img4, var = noisy_frame(11)
+    torch.cuda.synchronize()
+    frame_s = time.perf_counter() - t0
+    if img4.shape != (PT_HEIGHT, PT_WIDTH, 4) or var.shape != (PT_HEIGHT, PT_WIDTH) or not bool((var >= 0).all()):
+        raise AssertionError(f"4-spp frame {tuple(img4.shape)}, variance {tuple(var.shape)}")
+    log("14 denoise", f"render_frame_pt {PT_WIDTH}x{PT_HEIGHT} @ {DENOISE_SPP} spp with return_variance on {smi}: "
+        f"warm {frame_s:.3f} s, mean {img4[..., :3].mean().item():.5f}, mean variance {var.mean().item():.3e}")
+
+    # The guide buffers, through the lean tracer (K2 and the f16 table) and
+    # through the full kernel (K1's f32 normals, and K3 in full mode over the
+    # quantized layout of the same tree), on the same rays.
+    full_tracer, full_scene = make_full_tracer(pt_bvh.kernel_scene(device), stack_size=pt_bvh.recommended_stack_size,
+                                               packet_size=PT_PACKET)
+    q_tracer, q_scene = make_full_tracer(pt_bvh.quantized_scene(device), stack_size=pt_bvh.recommended_stack_size,
+                                         packet_size=PT_PACKET)
+
+    def aux(tr, st):
+        return render_aux(tr, st, sampler, torch.Generator(device=device).manual_seed(12), width=PT_WIDTH,
+                          height=PT_HEIGHT)
+
+    before = kernel_launch_counts()
+    n_pt, z_pt = aux(tracer, scene)
+    n_full, z_full = aux(full_tracer, full_scene)
+    n_q, z_q = aux(q_tracer, q_scene)
+    torch.cuda.synchronize()
+    after = kernel_launch_counts()
+    launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    if launched != {"K1": 1, "K2 closest": 1, "K3 full": 1}:
+        raise AssertionError(f"the three aux traces should launch K2, K1 and K3 full once each, launched {launched}")
+    hit_pt, hit_full = torch.any(n_pt != 0, dim=-1), torch.any(n_full != 0, dim=-1)
+    n_err = (n_pt - n_full).abs().max().item()
+    z_equal = torch.equal(z_pt, z_full)
+    aux_pt_ms = cuda_ms(lambda: aux(tracer, scene), 5)
+    aux_full_ms = cuda_ms(lambda: aux(full_tracer, full_scene), 5)
+    aux_q_ms = cuda_ms(lambda: aux(q_tracer, q_scene), 5)
+    text = (f"render_aux {PT_WIDTH}x{PT_HEIGHT}: through make_pt_tracer {aux_pt_ms:.3f} ms, through make_full_tracer "
+            f"{aux_full_ms:.3f} ms | launches {launched} | hit masks equal {torch.equal(hit_pt, hit_full)}, hit share "
+            f"{hit_pt.float().mean().item():.4f}, depths equal {z_equal}, max normal difference {n_err:.3g} (f16 "
+            f"table against f32)")
+    if not torch.equal(hit_pt, hit_full) or not z_equal or n_err > AUX_NORMAL_ATOL:
+        raise AssertionError(f"the two aux traces disagree: {text}")
+    log("14 denoise", text)
+    # The quantized layout moves every vertex by up to half a 16-bit step of
+    # its leaf's box, so K3's first hits are K1's up to that: the same hit
+    # mask on at least 99% of pixels and, on at least 99% of those both hit,
+    # the depth within rtol 1e-3 and the normal within 1e-2.
+    hit_q = torch.any(n_q != 0, dim=-1)
+    both = hit_q & hit_full
+    mask_share = (hit_q == hit_full).float().mean().item()
+    z_share = (((z_q - z_full).abs() <= AUX_Q_DEPTH_RTOL * z_full)[both]).float().mean().item()
+    nq_share = (((n_q - n_full).abs().amax(dim=-1) <= AUX_Q_NORMAL_ATOL)[both]).float().mean().item()
+    text = (f"render_aux {PT_WIDTH}x{PT_HEIGHT} through make_full_tracer over the QuantizedScene (K3 full): "
+            f"{aux_q_ms:.3f} ms | against K1's: hit masks equal on {mask_share:.6f}, depths within rtol "
+            f"{AUX_Q_DEPTH_RTOL} on {z_share:.6f}, normals within {AUX_Q_NORMAL_ATOL} on {nq_share:.6f} of the "
+            f"commonly hit")
+    if min(mask_share, z_share, nq_share) < AUX_Q_SHARE or not bool(torch.isfinite(z_q).all()):
+        raise AssertionError(f"K3's aux trace is not K1's: {text}")
+    log("14 denoise", text)
+    del n_full, z_full, n_q, z_q
+
+    # The bounce loop over the full kernel: the same Sobol paths as over the
+    # lean tracer, up to the f16 normals of its table, which move a glossy
+    # bounce by 2e-3 and so a few paths to another surface (means within
+    # 0.5%, at least 90% of pixels within 2e-2). K1's wrapper takes the
+    # live count as a host int, so each bounce after the first costs a host
+    # sync, which K2's path does not; K3 in full mode reads it from device
+    # memory as K2 does. Over the quantized layout the paths are K1's up to
+    # the moved vertices (mean within 0.5% of the lean tracer's).
+    import warnings
+
+    def sobol_frame(tr, st):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = render_frame_pt(tr, st, table, sampler, None, width=PT_WIDTH, height=PT_HEIGHT, spp=DENOISE_SPP,
+                              bounces=3, env=env, samples_per_packet=2, sobol=True, strat_seed=2024).cpu()
+        return img, time.perf_counter() - t0
+
+    counted = {}
+    for label, tr, st in (("make_pt_tracer", tracer, scene), ("make_full_tracer", full_tracer, full_scene),
+                          ("quantized", q_tracer, q_scene)):
+        sobol_frame(tr, st)
+        before = kernel_launch_counts()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                img, seconds = sobol_frame(tr, st)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        after = kernel_launch_counts()
+        counted[label] = dict(img=img, s=seconds, syncs=sum("synchroniz" in str(w.message) for w in caught),
+                              launches={k: after[k] - before[k] for k in after if after[k] != before[k]})
+    lean, full = counted["make_pt_tracer"], counted["make_full_tracer"]
+    m_lean, m_full = lean["img"][..., :3].mean().item(), full["img"][..., :3].mean().item()
+    close = ((lean["img"] - full["img"]).abs().amax(dim=-1) <= 2e-2).float().mean().item()
+    text = (f"render_frame_pt {PT_WIDTH}x{PT_HEIGHT} @ {DENOISE_SPP} spp Sobol, 3 bounces (no roulette fires), no NEE: over "
+            f"make_pt_tracer {lean['s']:.3f} s, {lean['syncs']} host syncs, launches {lean['launches']}; over "
+            f"make_full_tracer {full['s']:.3f} s, {full['syncs']} host syncs, launches {full['launches']} | means "
+            f"{m_lean:.5f} / {m_full:.5f}, pixels within 2e-2 {close:.4f}")
+    if full["launches"].get("K1", 0) == 0 or abs(m_full - m_lean) > STAT_RTOL * m_lean or close < 0.9:
+        raise AssertionError(f"the frame over the full kernel is not the lean tracer's: {text}")
+    log("14 denoise", text)
+    quant = counted["quantized"]
+    m_q = quant["img"][..., :3].mean().item()
+    close_q = ((quant["img"] - full["img"]).abs().amax(dim=-1) <= 2e-2).float().mean().item()
+    text = (f"the same frame over make_full_tracer on the QuantizedScene: {quant['s']:.3f} s, {quant['syncs']} host "
+            f"syncs, launches {quant['launches']} | mean {m_q:.5f} (lean {m_lean:.5f}, K1 {m_full:.5f}), pixels within "
+            f"2e-2 of K1's {close_q:.4f}")
+    if (quant["launches"].get("K3 full", 0) == 0 or set(quant["launches"]) != {"K3 full"}
+            or abs(m_q - m_lean) > STAT_RTOL * m_lean or not bool(torch.isfinite(quant["img"]).all())):
+        raise AssertionError(f"the frame over K3 in full mode is not the lean tracer's: {text}")
+    log("14 denoise", text)
+    del counted, lean, full, quant, full_tracer, full_scene, q_tracer, q_scene
+
+    rgb = img4[..., :3].contiguous()
+    den_fixed = atrous_denoise(rgb, n_pt, z_pt)
+    den_var = atrous_denoise(rgb, n_pt, z_pt, var)
+    fixed_ms = cuda_ms(lambda: atrous_denoise(rgb, n_pt, z_pt), 3)
+    var_ms = cuda_ms(lambda: atrous_denoise(rgb, n_pt, z_pt, var), 3)
+    log("14 denoise", f"atrous_denoise {PT_WIDTH}x{PT_HEIGHT}, 4 iterations, on {smi}: fixed-sigma {fixed_ms:.2f} ms, "
+        f"variance-guided {var_ms:.2f} ms (CUDA events, warm, mean of 3)")
+
+    # The card against the CPU on a crop of the same inputs, around the
+    # middle of the frame.
+    y0, x0 = (PT_HEIGHT - DENOISE_CROP) // 2, (PT_WIDTH - DENOISE_CROP) // 2
+    crop = [a[y0:y0 + DENOISE_CROP, x0:x0 + DENOISE_CROP].contiguous() for a in (rgb, n_pt, z_pt, var)]
+    for label, with_var in (("fixed-sigma", False), ("variance-guided", True)):
+        args = crop if with_var else crop[:3]
+        got = atrous_denoise(*args).cpu()
+        want = atrous_denoise(*(a.cpu() for a in args))
+        err = (got - want).abs()
+        close = (err <= DENOISE_ATOL + DENOISE_RTOL * want.abs()).float().mean().item()
+        text = (f"{label} on a {DENOISE_CROP}x{DENOISE_CROP} crop, card against CPU: within rtol {DENOISE_RTOL} atol "
+                f"{DENOISE_ATOL} {close:.6f}, max abs diff {err.max().item():.3g}")
+        if not bool(torch.isfinite(got).all()) or close < DENOISE_SHARE or err.max().item() > DENOISE_MAX_ABS:
+            raise AssertionError(f"the card's filter disagrees with the CPU's: {text}")
+        log("14 denoise", text)
+
+    # What it buys: the error against phase 7's 64-spp frame.
+    ref = torch.from_numpy(ref64[..., :3]).to(device)
+
+    def rmse(a):
+        return torch.sqrt(torch.mean((a - ref) ** 2)).item()
+
+    e_raw, e_fixed, e_var = rmse(rgb), rmse(den_fixed), rmse(den_var)
+    m_raw, m_var = rgb.mean().item(), den_var.mean().item()
+    text = (f"RMSE against phase 7's {PT_SPP}-spp frame: raw {DENOISE_SPP}-spp {e_raw:.5f}, fixed-sigma {e_fixed:.5f}, "
+            f"variance-guided {e_var:.5f} | means raw {m_raw:.5f}, variance-guided {m_var:.5f}, fixed-sigma "
+            f"{den_fixed.mean().item():.5f}, reference {ref.mean().item():.5f}")
+    if not (e_var < e_raw) or abs(m_var - m_raw) > DENOISE_MEAN_RTOL * m_raw or not bool(torch.isfinite(den_var).all()):
+        raise AssertionError(f"the filter does not help: {text}")
+    log("14 denoise", text)
+    return dict(frame_s=frame_s, aux_pt_ms=aux_pt_ms, aux_full_ms=aux_full_ms, aux_q_ms=aux_q_ms, fixed_ms=fixed_ms,
+                var_ms=var_ms)
+
+
+def phase_denoise_cli():
+    with tempfile.TemporaryDirectory() as tmp:
+        out, prefix = Path(tmp) / "atrium_pt.png", Path(tmp) / "aov"
+        cmd = [sys.executable, "-m", "minipath_tpu_torch.cli", "--scene", "atrium", "--integrator", "pt", "--nee",
+               "--denoise", "--aov", str(prefix), "--width", "512", "--height", "384", "--spp", "8", "--device",
+               "cuda", "--no-stats", "-o", str(out)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+        files = [out, Path(f"{prefix}_normal.png"), Path(f"{prefix}_depth.png")]
+        if proc.returncode != 0 or not all(f.exists() for f in files):
+            raise AssertionError(f"CLI failed (exit {proc.returncode}):\n{proc.stderr[-4000:]}")
+        from PIL import Image
+
+        imgs = [np.asarray(Image.open(f)) for f in files]
+        if any(i.shape != (384, 512, 4) for i in imgs) or not all((i[..., :3] > 0).any() for i in imgs):
+            raise AssertionError(f"CLI images {[i.shape for i in imgs]}: one is empty")
+        said = [ln for ln in proc.stderr.splitlines() if ln.startswith(("path traced", "denoised", "saved"))]
+        if not any("variance-guided" in ln for ln in said):
+            raise AssertionError(f"the CLI did not take the variance-guided filter: {said}")
+        log("14 denoise cli", f"exit 0 in {time.perf_counter() - t0:.1f}s, {[f.name for f in files]} | "
+            f"{' | '.join(said)}")
+
+
+def pump(controller, until, timeout=120.0):
+    """Call ``controller.update()`` until ``until()`` holds."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        controller.update()
+        if until():
+            return
+        time.sleep(0.002)
+    raise AssertionError(f"the GUI controller did not get there in {timeout:.0f} s")
+
+
+def phase_gui(native_bvh, pt_bvh, dicts, device, smi):
+    """Phase 15: the GUI benchmark, a controller's image against
+    ``render()``'s, an abort in mid-render, and the progressive viewport."""
+    import contextlib
+    import io
+
+    from minipath_tpu_torch import RenderSettings, Scene, render
+    from minipath_tpu_torch import gui
+    from minipath_tpu_torch.render import kernels
+    from minipath_tpu_torch.tools import bench_gui
+
+    w, h = GUI_SIZE
+    total = -(-w // TILE) * -(-h // TILE)
+    kernels.trace_packets.launches = 0
+    said = io.StringIO()
+    with contextlib.redirect_stdout(said):
+        rc = bench_gui.main(["--device", "cuda", "--scene", "atrium", str(w), str(h)])
+    if rc != 0:
+        raise AssertionError(f"bench_gui exited {rc}")
+    result = json.loads(said.getvalue())
+    k1_bench = kernels.trace_packets.launches
+    log("15 gui", f"bench_gui on {smi}: {json.dumps(result)} | K1 launches {k1_bench}")
+    # measure() raises unless every driven render finished its tiles and
+    # each preview escalated; here the counts it reports.
+    if result["tiles"] != total or k1_bench == 0 or not result["first_feedback_under_1s"]:
+        raise AssertionError(f"bench_gui: {result['tiles']} of {total} tiles, K1 launches {k1_bench}")
+
+    # A controller's full image against render()'s for the same seed.
+    camera = bench_gui.scene_camera("atrium")
+    scene = Scene(native_bvh)
+    c = gui.GuiController(scene, camera, (w, h), tile_size=TILE, device=device)
+    c.start()
+    pump(c, lambda: c.mode == "full" and c.progress.is_finished())
+    c.update()
+    snap = c.progress.progress()
+    if snap.finished != snap.total or snap.total != total or c.in_progress_tiles:
+        raise AssertionError(f"the full render finished {snap.finished}/{snap.total} tiles")
+    settings = RenderSettings(TILE, c.full_spp, (w, h))
+    p_tile = render(scene, camera, settings, lambda t: None, lambda t, s: None, device=device)
+    p_tile.wait()
+    p_frame = render(scene, camera, settings, device=device)
+    p_frame.wait()
+    img, img_frame = c.image, p_frame.image()
+    equal = np.array_equal(img, p_tile.image())
+
+    def stats(a):
+        return float(a[..., 3].mean()) / 255, float(a[..., 0].mean()) / 255
+
+    (cov, mean), (cov_f, mean_f) = stats(img), stats(img_frame)
+    text = (f"GuiController {w}x{h}, preview 1 spp -> full {c.full_spp} spp: {snap.finished}/{snap.total} tiles | "
+            f"image == render() in tile mode, same seed: {equal} | against render() in frame mode: coverage "
+            f"{cov:.5f} / {cov_f:.5f}, mean value {mean:.5f} / {mean_f:.5f}, pixels equal "
+            f"{float((img == img_frame).all(-1).mean()):.4f}")
+    if not equal or abs(cov - cov_f) > STAT_RTOL * cov_f or abs(mean - mean_f) > STAT_RTOL * mean_f:
+        raise AssertionError(f"the controller's image is not render()'s: {text}")
+    log("15 gui", text)
+
+    # abort() in the middle of a 64-spp render: the dispatch in flight
+    # finishes, no other starts, and no error comes back.
+    c.full_spp = GUI_ABORT_SPP
+    c.move_camera(0.25, 0.0, 0.0)
+    pump(c, lambda: c.mode == "full" and c.progress.progress().finished > 0)
+    handle = c.progress
+    t0 = time.perf_counter()
+    c.cancel_previous_render()
+    abort_s = time.perf_counter() - t0
+    snap = handle.progress()
+    if not handle.is_finished() or not 0 < snap.finished < snap.total or c.progress is not None:
+        raise AssertionError(f"abort() left {snap.finished}/{snap.total} tiles, finished {handle.is_finished()}")
+    log("15 gui", f"abort() during the {GUI_ABORT_SPP}-spp render: returned in {abort_s:.3f} s with "
+        f"{snap.finished}/{snap.total} tiles finished, no error")
+    c.shutdown()
+
+    # The progressive path-traced viewport. Its worker thread launches while
+    # this one reads the counters, so they are read after shutdown.
+    vw, vh = VIEWPORT_SIZE
+    for mode in kernels.trace_packets_pt.launches:
+        kernels.trace_packets_pt.launches[mode] = 0
+    args = argparse.Namespace(width=vw, height=vh, device=str(device))
+    pc = gui._make_pt_controller(args, pt_bvh, bench_camera(), dicts)
+    t0 = time.perf_counter()
+    pc.start()
+    pump(pc, lambda: pc.samples() >= 1, timeout=300.0)
+    first_s = time.perf_counter() - t0
+    t1, n1 = time.perf_counter(), pc.samples()
+    pump(pc, lambda: pc.samples() >= VIEWPORT_PASSES, timeout=300.0)
+    n2 = pc.samples()
+    rate = (n2 - n1) / (time.perf_counter() - t1)
+    # Twice: each call that finds new passes filters anew, beside the worker,
+    # whose launches share the card and the interpreter with it.
+    display_s = []
+    for _ in range(2):
+        seen = pc.samples()
+        pump(pc, lambda: pc.samples() > seen, timeout=300.0)
+        t0 = time.perf_counter()
+        shown = pc.display_image()
+        display_s.append(time.perf_counter() - t0)
+    if shown.shape != (vh, vw, 3) or shown.dtype != np.uint8 or not 0 < shown.mean() < 255:
+        raise AssertionError(f"display_image() {shown.shape} {shown.dtype} mean {shown.mean()}")
+    aux_before = pc._aux[0]
+    pc.move_camera(0.25, 0.0, 0.0)
+    pump(pc, lambda: pc._gen == 1 and pc._aux[0] is not aux_before and pc.samples() >= 1, timeout=300.0)
+    restarted = pc.samples()
+    pc.shutdown()
+    if pc._thread.is_alive():
+        raise AssertionError("the viewport's worker did not stop")
+    if restarted >= n2:
+        raise AssertionError(f"the camera move did not restart the accumulation: {restarted} passes after {n2}")
+    k2 = dict(kernels.trace_packets_pt.launches)
+    if k2["closest"] == 0:
+        raise AssertionError("the viewport launched no K2")
+    log("15 gui", f"ProgressivePtController {vw}x{vh}, 1 spp a pass, 5 bounces, with make_aux on {smi}: first pass "
+        f"after {first_s:.3f} s, {n2} passes at {rate:.2f} passes/s, display_image() with the filter, beside "
+        f"the worker, {' and '.join(f'{t * 1e3:.1f}' for t in display_s)} ms | a camera move restarted the accumulation ({n2} -> {restarted} passes, new guide "
+        f"buffers) | K2 launches {k2}")
+    return result, k1_bench, k2["closest"], dict(passes_per_s=rate, display_ms=[t * 1e3 for t in display_s])
+
+
+def phase_sphere(device, smi):
+    """Phase 16: the analytic sphere through ``render()``; no kernel."""
+    from minipath_tpu_torch import Camera, RenderSettings, Scene, Sphere, render
+
+    camera = Camera().look_at((0.0, 0.5, 4.0), (0.0, 0.0, 0.0))
+    scene = Scene(Sphere())
+
+    def frame(dev, size):
+        p = render(scene, camera, RenderSettings(TILE, SPP, size), device=dev)
+        p.wait()
+        snap = p.progress()
+        if snap.finished != snap.total:
+            raise AssertionError(f"{snap.finished}/{snap.total} tiles finished")
+        return p, p.image()
+
+    frame(device, (WIDTH, HEIGHT))
+    before = kernel_launch_counts()
+    p, img = frame(device, (WIDTH, HEIGHT))
+    if kernel_launch_counts() != before:
+        raise AssertionError("the sphere's frame launched a traversal kernel")
+    _, img_cpu = frame("cpu", (256, 144))
+    (cov, mean), (cov_c, mean_c) = ((float(a[..., 3].mean()) / 255, float(a[..., 0].mean()) / 255) for a in (img, img_cpu))
+    text = (f"render() of Scene(Sphere()) {WIDTH}x{HEIGHT} @ {SPP} spp on {smi}: warm frame {p.elapsed():.3f} s = "
+            f"{WIDTH * HEIGHT * SPP / p.elapsed() / 1e6:.1f} Mrays/s, no kernel launch | coverage {cov:.5f}, mean value "
+            f"{mean:.5f}; the CPU's frame at 256x144: {cov_c:.5f}, {mean_c:.5f} | phases "
+            f"{json.dumps(p.timings().summary())}")
+    if img.shape != (HEIGHT, WIDTH, 4) or abs(cov - cov_c) > STAT_RTOL * cov_c or abs(mean - mean_c) > STAT_RTOL * mean_c:
+        raise AssertionError(f"the sphere's frame on the card is not the CPU's: {text}")
+    log("16 sphere", text)
+    return p.elapsed()
 
 
 def build_big_atrium(device):
@@ -1188,8 +1617,17 @@ def main() -> int:
     from minipath_tpu_torch.scene.triangle_bvh import TriangleBvh
 
     device = torch.device("cuda", 0)
+    mesh = make_atrium(250_000)
+
+    def native_tree(**kw):
+        t0 = time.perf_counter()
+        tree = TriangleBvh.build(mesh, use_native=True, **kw)
+        print(f"atrium, native build {kw or ''}: {tree.statistics()['inner_nodes']} inner nodes, stack "
+              f"{tree.recommended_stack_size}, built in {time.perf_counter() - t0:.1f}s", flush=True)
+        return tree
+
     t0 = time.perf_counter()
-    bvh = TriangleBvh.build(make_atrium(250_000))
+    bvh = TriangleBvh.build(mesh)
     stats = bvh.statistics()
     print(f"atrium: {stats['triangles']} triangles, {stats['inner_nodes']} inner nodes, "
           f"max depth {stats['max_depth']}, stack {bvh.recommended_stack_size}, "
@@ -1203,17 +1641,30 @@ def main() -> int:
         phase_k3(build_big_atrium(device), pt_bvh, parts[0], sets, device)
         print("kernels only: phases 1, 2, 3, 6 and 10 passed", flush=True)
         return 0
-    launches = phase_main_path(bvh, device, smi)
+    # The CLI's tree (and phase 15's), and the bench's.
+    cli_tree = native_tree()
+    launches = phase_main_path(bvh, device, smi, (("the CLI's native-built tree, leaves <= 56", cli_tree),
+                                                  ("the bench's native-built tree, leaves <= 24",
+                                                   native_tree(leaf_max=24))))
+    del bvh
     phase_cli()
 
     pt_bvh, dicts = build_pt_atrium()
     parts = pt_parts(pt_bvh, dicts, device)
     k2, sets = phase_k2(pt_bvh, parts, device)
-    k2_launches, pt_mean = phase_pt_main_path(parts, device, smi)
+    k2_launches, ref64 = phase_pt_main_path(parts, device, smi)
+    pt_mean = float(ref64[..., :3].mean())
     phase_card_vs_cpu(pt_bvh, dicts, device)
     phase_pt_cli()
     if args.profile is not None:
         profile_pt_frame(parts, device, args.profile)
+
+    phase_denoise(pt_bvh, parts, ref64, device, smi)
+    del ref64
+    phase_denoise_cli()
+    phase_gui(cli_tree, pt_bvh, dicts, device, smi)
+    del cli_tree, mesh
+    phase_sphere(device, smi)
 
     big = build_big_atrium(device)
     k3 = phase_k3(big, pt_bvh, parts[0], sets, device)

@@ -14,13 +14,23 @@ Ported so far: the parity render path (grayscale ``|d.n|`` shading, the
 CLI's ``--integrator normal``), the wavefront path tracer (materials,
 next-event estimation with MIS, roulette, compaction; ``--integrator pt``)
 and the 16-bit quantized scene layout (``QuantizedScene``, ``QPTScene``),
-which ``trace_scene`` and the path tracer's tracers dispatch to by type.
+which ``trace_scene`` and the path tracer's tracers dispatch to by type;
+the post-process (``atrous_denoise`` with its guide buffers from
+``render_aux``, the CLI's ``--denoise`` and ``--aov``), the analytic
+``Sphere``, and the interactive viewer (``minipath_tpu_torch.gui``: the
+tile-streaming ``GuiController`` and the progressive path-traced viewport).
 """
 
 from minipath_tpu_torch.camera import Camera, CameraSampler
 from minipath_tpu_torch.render import RenderProgress, RenderSettings, render
+from minipath_tpu_torch.render.denoise import atrous_denoise, render_aux
 from minipath_tpu_torch.render.kernels_q import QPTScene, QuantizedScene, trace_scene
-from minipath_tpu_torch.render.wavefront import make_pt_shadow_tracer, make_pt_tracer, render_frame_pt
+from minipath_tpu_torch.render.wavefront import (
+    make_full_tracer,
+    make_pt_shadow_tracer,
+    make_pt_tracer,
+    render_frame_pt,
+)
 from minipath_tpu_torch.scene import Scene
 from minipath_tpu_torch.scene.materials import (
     Environment,
@@ -31,6 +41,7 @@ from minipath_tpu_torch.scene.materials import (
     material_table,
     metal,
 )
+from minipath_tpu_torch.scene.primitives import Sphere
 from minipath_tpu_torch.scene.triangle_bvh import TriangleBvh
 from minipath_tpu_torch.screen_block import ScreenBlock
 
@@ -44,16 +55,20 @@ __all__ = [
     "RenderSettings",
     "Scene",
     "ScreenBlock",
+    "Sphere",
     "TriangleBvh",
+    "atrous_denoise",
     "build_light_table",
     "dielectric",
     "emissive",
     "lambertian",
+    "make_full_tracer",
     "make_pt_shadow_tracer",
     "make_pt_tracer",
     "material_table",
     "metal",
     "render",
+    "render_aux",
     "render_frame_pt",
     "trace_scene",
 ]

@@ -15,7 +15,12 @@ benchmark ``atrium`` (path traced with its benchmark materials, whose
 ceiling panels emit). Without ``--obj`` the ``obj`` scene renders the
 procedural sphere; OBJ and sphere scenes are path traced in grey.
 
-Not ported: ``--devices``, ``--denoise``, ``--aov`` and ``--adaptive``.
+Path-traced frames can be filtered before they are saved (``--denoise``:
+the edge-avoiding a-trous filter of ``render/denoise.py``, variance-guided
+from 2 spp on) and written with their first-hit normal and depth buffers
+(``--aov PREFIX``).
+
+Not ported: ``--devices`` and ``--adaptive``.
 """
 
 from __future__ import annotations
@@ -80,13 +85,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--iid", action="store_true", help="path tracer: iid sampling instead of per-pixel strata")
     p.add_argument("--sobol", action="store_true", help="path tracer: Owen-scrambled Sobol sample dimensions "
                    "instead of jittered strata")
+    p.add_argument("--denoise", action="store_true", help="path tracer: edge-avoiding a-trous filter guided by "
+                   "first-hit normals/depth (biased post-process; the saved PNG only)")
+    p.add_argument("--aov", metavar="PREFIX", default=None, help="path tracer: also write first-hit AOVs "
+                   "<PREFIX>_normal.png and <PREFIX>_depth.png")
     p.add_argument("--clamp", type=float, default=None, metavar="L", help="path tracer: cap each sample's "
                    "radiance at L before averaging (firefly suppression; biased)")
     return p
 
 
 def load_scene(args):
-    """``(bvh, material dicts or None)`` for the chosen scene."""
+    """``(bvh, material dicts or None)`` for the chosen scene. The atrium is
+    built by the native C++ code (``scene/bvh/native.py``), which raises
+    where it cannot be compiled."""
     from minipath_tpu_torch.scene import procedural
     from minipath_tpu_torch.scene.triangle_bvh import TriangleBvh
 
@@ -96,8 +107,8 @@ def load_scene(args):
             # The benchmark material set: emissive ceiling panels, metal and
             # glass props, so --nee has lights.
             ids, dicts = procedural.atrium_materials(mesh)
-            return TriangleBvh.build(mesh, materials=ids), dicts
-        return TriangleBvh.build(mesh), None
+            return TriangleBvh.build(mesh, materials=ids, use_native=True), dicts
+        return TriangleBvh.build(mesh, use_native=True), None
     if args.scene == "obj" and args.obj:
         return TriangleBvh.with_obj(args.obj), None
     if args.scene == "obj":
@@ -218,8 +229,12 @@ def _render_pt(args, bvh, camera, material_dicts) -> int:
         min_live_frac=args.tail_cut,
         stratify=not args.iid,
         sobol=args.sobol,
+        return_variance=args.denoise and args.spp >= 2,
         clamp=args.clamp,
     )
+    var_img = None
+    if isinstance(img, tuple):
+        img, var_img = img
     a = img.cpu().numpy()
     elapsed = time.perf_counter() - t0
     paths = args.width * args.height * args.spp
@@ -228,6 +243,37 @@ def _render_pt(args, bvh, camera, material_dicts) -> int:
         f"in {elapsed:.2f}s ({paths / elapsed / 1e6:.1f} Mpaths/s)",
         file=sys.stderr,
     )
+    if args.denoise or args.aov:
+        from minipath_tpu_torch.render.denoise import atrous_denoise, render_aux
+
+        n_img, z_img = render_aux(
+            tracer, scene, camera.build_sampler((args.width, args.height), device),
+            torch.Generator(device=device).manual_seed(args.seed + 1),
+            width=args.width, height=args.height,
+        )
+        if args.denoise:
+            a[..., :3] = atrous_denoise(img[..., :3], n_img, z_img, var_img).cpu().numpy()
+            kind = "variance-guided" if var_img is not None else "edge-avoiding"
+            print(f"denoised ({kind} a-trous)", file=sys.stderr)
+        if args.aov:
+            n_np = n_img.cpu().numpy()
+            hit = np.any(n_np != 0.0, axis=-1)
+            n_vis = np.where(hit[..., None], n_np * 0.5 + 0.5, 0.0)
+            save_png(
+                f"{args.aov}_normal.png",
+                color_to_image(np.concatenate([n_vis, hit[..., None].astype(np.float64)], -1)),
+            )
+            z_np = z_img.cpu().numpy()
+            z_hit = z_np[hit] if hit.any() else np.array([0.0, 1.0])
+            lo, hi = float(z_hit.min()), float(z_hit.max())
+            # Near = bright, far = dark, normalized over the hit range.
+            z_vis = np.where(hit, 1.0 - (z_np - lo) / max(hi - lo, 1e-6), 0.0).clip(0.0, 1.0)
+            z_rgba = np.repeat(z_vis[..., None], 3, axis=-1)
+            save_png(
+                f"{args.aov}_depth.png",
+                color_to_image(np.concatenate([z_rgba, np.ones_like(z_vis)[..., None]], -1)),
+            )
+            print(f"saved {args.aov}_normal.png, {args.aov}_depth.png", file=sys.stderr)
     a[..., :3] = np.clip(a[..., :3], 0.0, 1.0) ** (1 / 2.2)  # display gamma
     save_png(args.output, color_to_image(a))
     print(f"saved {args.output}", file=sys.stderr)

@@ -18,6 +18,7 @@ import torch
 from minipath_tpu_torch.camera import CameraSampler, sample_rays
 from minipath_tpu_torch.render.kernels import KernelHits, KernelScene, rays_to_rays9
 from minipath_tpu_torch.render.kernels_q import QuantizedScene, trace_scene
+from minipath_tpu_torch.render.stratify import render_seed
 
 # Dimension-salt base for the camera's film/lens strata, clear of the
 # per-bounce salts a path tracer uses (8 per bounce).
@@ -141,7 +142,7 @@ def render_frame(
     samples_per_packet: int = 16,
     stratify: bool = True,
     sobol: bool = False,
-    strat_seed: int = 0,
+    strat_seed: int | None = None,
 ) -> torch.Tensor:
     """Full-frame mean image ``(H, W, 4)`` float32 in [0, 1] on the
     scene's device.
@@ -150,10 +151,18 @@ def render_frame(
     jittered strata spanning the full ``spp``; ``sobol`` upgrades them to
     per-pixel Owen-scrambled Sobol points, and every sample is then a pure
     function of (pixel, sample index, ``strat_seed``): no uniform is drawn
-    from ``generator``, which may be None.
+    from ``generator`` for them. ``strat_seed`` (an int) re-randomizes the
+    stratum pairings per render; when None it is drawn from ``generator``
+    (one host sync), so two frames from generators in different states pair
+    their strata differently. ``generator`` may be None only in Sobol mode
+    with a ``strat_seed`` given.
     """
     if scene.device != sampler.device:
         raise ValueError(f"scene on {scene.device}, sampler on {sampler.device}")
+    if generator is None and (strat_seed is None or not (stratify and sobol)):
+        raise ValueError("generator=None needs sobol=True and a strat_seed")
+    if strat_seed is None:
+        strat_seed = render_seed(generator) if stratify else 0
     strat_spp = (-spp if sobol else spp) if stratify else None
 
     acc = None

@@ -3,9 +3,11 @@
 The parity integrator reproduces the reference worker
 (``minipath/src/renderer/worker.rs:51-65``): cast a camera ray, shade hits
 as grayscale ``|ray_dir . normal|`` with alpha 1, misses as transparent
-black. Port of the batched-tile renderer
-``minipath_tpu/render/integrator.py::render_tile_batch_bvh_pallas``; it
-operates on whole batches of tiles, each cut into pixel packets.
+black. Port of the batched-tile renderers
+``minipath_tpu/render/integrator.py::render_tile_batch_bvh_pallas`` and
+``render_tile_batch_sphere`` (the analytic sphere, which launches no
+kernel); they operate on whole batches of tiles, each cut into pixel
+packets.
 """
 
 from __future__ import annotations
@@ -13,9 +15,19 @@ from __future__ import annotations
 import torch
 
 from minipath_tpu_torch.camera import CameraSampler, sample_rays
+from minipath_tpu_torch.geometry.ray import Rays
 from minipath_tpu_torch.render.frame import CAMERA_SALT, shade_parity_sum
+from minipath_tpu_torch.render.hit import HitRecords
 from minipath_tpu_torch.render.kernels import KernelScene, rays_to_rays9
 from minipath_tpu_torch.render.kernels_q import QuantizedScene, trace_scene
+
+
+def shade_normal_dot(rays: Rays, hits: HitRecords) -> torch.Tensor:
+    """Grayscale ``|d . n|`` shading with alpha, transparent miss
+    (``worker.rs:59-64``). Returns RGBA ``(..., 4)``."""
+    dot = torch.abs(torch.sum(rays.direction * hits.normal, dim=-1))
+    rgba = torch.stack([dot, dot, dot, torch.ones_like(dot)], dim=-1)
+    return torch.where(hits.hit[..., None], rgba, torch.zeros_like(rgba))
 
 
 def tile_pixel_packets(tile_origin, tile_shape, packet_shape, device) -> torch.Tensor:
@@ -60,7 +72,38 @@ def film_strat(pix: torch.Tensor, spp: int, s_idx: torch.Tensor, strat_seed: int
     return (s_idx, pid ^ strat_seed, spp, CAMERA_SALT)
 
 
-def tile_batch_rays9(
+def tile_batch_rays(
+    sampler: CameraSampler,
+    tile_origins: torch.Tensor,  # (K, 2) f32 pixel origins
+    generator: torch.Generator,
+    strat_seed: int,
+    *,
+    tile_shape,
+    packet_shape,
+    spp: int,
+) -> Rays:
+    """Camera rays of K tiles, fields ``(K*nb, spp*bp, 3)``: one packet per
+    pixel block of ``packet_shape`` (``bp`` pixels, ``nb`` blocks per tile),
+    its samples sample-major and stratified per pixel over ``spp``."""
+    dev = sampler.device
+    K = tile_origins.shape[0]
+    base = tile_pixel_packets((0.0, 0.0), tile_shape, packet_shape, dev)  # (nb, bp, 2)
+    nb, bp = base.shape[:2]
+    pix = base[None] + tile_origins.to(dev)[:, None, None, :]  # (K, nb, bp, 2)
+    pix = pix.reshape(K * nb, bp, 2).repeat(1, spp, 1)  # sample-major (K*nb, spp*bp, 2)
+    s_row = torch.arange(spp * bp, device=dev) // bp
+    strat = film_strat(pix, spp, s_row.expand(K * nb, -1), strat_seed)
+    return sample_rays(sampler, pix, generator, strat=strat)
+
+
+def tile_batch_rays9(sampler, tile_origins, generator, strat_seed, **shape) -> torch.Tensor:
+    """:func:`tile_batch_rays` packed for the kernels, ``(K*nb, 9,
+    spp*bp)``."""
+    return rays_to_rays9(tile_batch_rays(sampler, tile_origins, generator, strat_seed, **shape))
+
+
+def render_tile_batch_sphere(
+    sphere,
     sampler: CameraSampler,
     tile_origins: torch.Tensor,  # (K, 2) f32 pixel origins
     generator: torch.Generator,
@@ -70,18 +113,20 @@ def tile_batch_rays9(
     packet_shape,
     spp: int,
 ) -> torch.Tensor:
-    """Camera rays of K tiles, ``(K*nb, 9, spp*bp)``: one packet per pixel
-    block of ``packet_shape`` (``bp`` pixels, ``nb`` blocks per tile), its
-    samples sample-major and stratified per pixel over ``spp``."""
-    dev = sampler.device
+    """Batched-tile renderer of the analytic sphere
+    (``scene/primitives.py``): the rays of :func:`render_tile_batch_bvh`,
+    intersected by ``sphere.intersect`` and shaded by
+    :func:`shade_normal_dot`. Returns ``(K, th, tw, 4)`` RGBA sums over
+    ``spp`` samples."""
     K = tile_origins.shape[0]
-    base = tile_pixel_packets((0.0, 0.0), tile_shape, packet_shape, dev)  # (nb, bp, 2)
-    nb, bp = base.shape[:2]
-    pix = base[None] + tile_origins.to(dev)[:, None, None, :]  # (K, nb, bp, 2)
-    pix = pix.reshape(K * nb, bp, 2).repeat(1, spp, 1)  # sample-major (K*nb, spp*bp, 2)
-    s_row = torch.arange(spp * bp, device=dev) // bp
-    strat = film_strat(pix, spp, s_row.expand(K * nb, -1), strat_seed)
-    return rays_to_rays9(sample_rays(sampler, pix, generator, strat=strat))
+    rays = tile_batch_rays(
+        sampler, tile_origins, generator, strat_seed,
+        tile_shape=tile_shape, packet_shape=packet_shape, spp=spp,
+    )
+    rgba = shade_normal_dot(rays, sphere.intersect(rays))  # (K*nb, spp*bp, 4)
+    nb, bp = rgba.shape[0] // K, rgba.shape[1] // spp
+    rgba_sum = rgba.reshape(K * nb, spp, bp, 4).sum(dim=1)
+    return unpack_tile(rgba_sum.reshape(K, nb, bp, 4), tile_shape, packet_shape)
 
 
 def render_tile_batch_bvh(

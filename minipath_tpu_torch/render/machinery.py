@@ -28,6 +28,7 @@ import torch
 from minipath_tpu_torch.camera import Camera
 from minipath_tpu_torch.render import integrator
 from minipath_tpu_torch.scene import Scene
+from minipath_tpu_torch.scene.primitives import Sphere
 from minipath_tpu_torch.scene.triangle_bvh import TriangleBvh
 from minipath_tpu_torch.screen_block import ScreenBlock
 from minipath_tpu_torch.utils.profiling import PhaseTimers
@@ -150,7 +151,10 @@ def render(
     seed: int = 0,
 ) -> RenderProgress:
     """Start rendering on ``device``; returns immediately with a
-    :class:`RenderProgress`.
+    :class:`RenderProgress`. The scene's object is a ``TriangleBvh`` (traced
+    by K1, or K3 over the quantized layout) or the analytic ``Sphere``
+    (intersected in closed form, no kernel); anything else raises
+    ``TypeError``.
 
     Callbacks fire on the render thread: ``started_tile_callback(tile)`` and
     ``finished_tile_callback(tile, snapshot)`` with a
@@ -161,7 +165,7 @@ def render(
     seed and the tile order: one seed gives one image.
     """
     obj = scene.object
-    if not isinstance(obj, TriangleBvh):
+    if not isinstance(obj, (TriangleBvh, Sphere)):
         raise TypeError(f"Unsupported scene object: {type(obj)!r}")
     device = torch.device(device)
     width, height = settings.resolution
@@ -182,9 +186,24 @@ def render(
         min(SAMPLES_PER_PASS, spp_total - s) for s in range(0, spp_total, SAMPLES_PER_PASS)
     ]
 
-    stack_size = obj.recommended_stack_size
-    kernel_scene = obj.kernel_scene(device)
     sampler = camera.build_sampler(settings.resolution, device)
+    shape = dict(tile_shape=tile_shape, packet_shape=PACKET_SHAPE)
+    if isinstance(obj, TriangleBvh):
+        stack_size = obj.recommended_stack_size
+        kernel_scene = obj.kernel_scene(device)
+
+        def tile_batch(origins, spp, strat_seed):
+            return integrator.render_tile_batch_bvh(
+                kernel_scene, sampler, origins, generator, strat_seed, spp=spp, stack_size=stack_size, **shape
+            )
+
+    else:
+        # The analytic sphere: no scene layout and no kernel launch.
+        def tile_batch(origins, spp, strat_seed):
+            return integrator.render_tile_batch_sphere(
+                obj, sampler, origins, generator, strat_seed, spp=spp, **shape
+            )
+
     generator = torch.Generator(device=device)
     generator.manual_seed(seed)
     # One stratum seed per pass, from the render seed.
@@ -204,17 +223,7 @@ def render(
         acc = None
         with state.timers.phase("dispatch", device):
             for spp, strat_seed in zip(passes, pass_seeds):
-                part = integrator.render_tile_batch_bvh(
-                    kernel_scene,
-                    sampler,
-                    origins,
-                    generator,
-                    strat_seed,
-                    tile_shape=tile_shape,
-                    packet_shape=PACKET_SHAPE,
-                    spp=spp,
-                    stack_size=stack_size,
-                )
+                part = tile_batch(origins, spp, strat_seed)
                 acc = part if acc is None else acc + part
         return _finalize_u8(acc, spp_total), origins
 

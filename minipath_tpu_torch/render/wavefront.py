@@ -17,8 +17,9 @@ light dimension is a pure function of (pixel, sample, seed) and nothing is
 drawn from the generator for them; only shadow-ray and path roulette stay
 iid.
 
-Not ported: the portable XLA tracers (the port's CPU path is K2's plain
-version behind the same :func:`make_pt_tracer`), the multi-device renderer,
+Not ported: the portable XLA tracers (the port's CPU path is the kernels'
+plain version behind the same :func:`make_pt_tracer` and
+:func:`make_full_tracer`), the multi-device renderer,
 and the TPU-measured shadow-sort alternatives (only ``"pos"`` is here).
 """
 
@@ -31,8 +32,8 @@ import torch
 
 from minipath_tpu_torch.camera import CameraSampler
 from minipath_tpu_torch.render.frame import gen_frame_rays9, unpack_frame
-from minipath_tpu_torch.render.kernels import KernelHits, PTHits, PTScene, trace_packets_pt
-from minipath_tpu_torch.render.kernels_q import QPTScene, trace_packets_q
+from minipath_tpu_torch.render.kernels import KernelHits, KernelScene, PTHits, PTScene, trace_packets_pt
+from minipath_tpu_torch.render.kernels_q import QPTScene, QuantizedScene, trace_packets_q, trace_scene
 from minipath_tpu_torch.render.stratify import render_seed, strat1d, strat2d
 from minipath_tpu_torch.scene.materials import (
     DIELECTRIC,
@@ -282,6 +283,37 @@ def make_pt_tracer(scene: PTScene | QPTScene, *, stack_size: int, packet_size: i
             inner_visits=ph.inner_visits,
             leaf_tests=ph.leaf_tests,
             texture_coords=tex,
+        )
+
+    return tracer, scene
+
+
+def make_full_tracer(scene: KernelScene | QuantizedScene, *, stack_size: int, packet_size: int = 2048):
+    """Closest-hit tracer over the full kernel (K1, or K3 in full mode over
+    a :class:`QuantizedScene`) through ``trace_scene``: the counterpart of
+    the JAX package's ``make_pallas_tracer``. The kernel itself returns the
+    float32 shading normal and the material, so nothing is gathered
+    afterwards; ``texture_coords`` stays None (the bounce loop reads none).
+
+    Same contract as :func:`make_pt_tracer`: returns ``(tracer, scene)``
+    with ``tracer(scene, origin, direction, inv_direction, live_rays=None)
+    -> KernelHits`` over ``(N, 3)`` rays. Over the f32 layout a ``live_rays``
+    device tensor costs one host sync a call: K1's wrapper takes the live
+    count as a host int, where K2 and K3 read it from device memory.
+    """
+
+    def tracer(state: KernelScene | QuantizedScene, origin, direction, inv_direction, live_rays=None) -> KernelHits:
+        N = origin.shape[0]
+        r9, live_packets, Np = _pack_rays9(packet_size, live_rays, origin, direction, inv_direction)
+        kh = trace_scene(state, r9, stack_size=stack_size, live_packets=live_packets)
+        return KernelHits(
+            t=kh.t.reshape(Np)[:N],
+            tri=kh.tri.reshape(Np)[:N],
+            normal=kh.normal.reshape(Np, 3)[:N],
+            material=kh.material.reshape(Np)[:N],
+            overflow=kh.overflow,
+            inner_visits=kh.inner_visits,
+            leaf_tests=kh.leaf_tests,
         )
 
     return tracer, scene

@@ -2,8 +2,10 @@
 
 Mirrors the reference's ``scene`` module surface
 (``minipath/src/scene/mod.rs``): a :class:`Scene` holds exactly one
-renderable object. The one object the port renders so far is
-:class:`~minipath_tpu_torch.scene.triangle_bvh.TriangleBvh`.
+renderable object: a
+:class:`~minipath_tpu_torch.scene.triangle_bvh.TriangleBvh` or the analytic
+:class:`~minipath_tpu_torch.scene.primitives.Sphere`. Objects implement
+``intersect`` over batched rays plus ``get_bounding_box``.
 """
 
 from __future__ import annotations

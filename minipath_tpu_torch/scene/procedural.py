@@ -215,3 +215,103 @@ def atrium_materials(mesh: MeshData, seed: int = 11):
         emissive((1.0, 0.95, 0.85), 4.0),  # 4
     ]
     return mats, dicts
+
+
+def _rect(p0, p1, p2, p3) -> MeshData:
+    """Two-triangle rectangle through four corners (in order)."""
+    return _mesh_from_soup(
+        np.array([p0, p1, p2, p3], np.float32), [(0, 1, 2), (0, 2, 3)]
+    )
+
+
+def make_tworooms(target_triangles: int = 150_000, seed: int = 23) -> MeshData:
+    """Hard-light-topology benchmark scene: a dark room lit only through a
+    doorway from an adjacent room whose single emitter is a small RECESSED
+    ceiling fixture (panel + occluding skirt).
+
+    The counterpart to :func:`make_atrium` for next-event-estimation
+    studies: in the atrium the emitters are large ceiling panels directly
+    visible from most first-bounce vertices, so capping NEE at depth 1
+    loses almost nothing. Here a first-bounce vertex in the camera room can
+    essentially never see the fixture (the skirt blocks every shallow
+    sightline through the doorway), so light arrives only via multi-bounce
+    transport through the door — the topology where deep light sampling
+    earns its keep.
+
+    Geometry: outer shell x in [-12,12], y in [0,6], z in [-6,6]; divider
+    wall at x=0 with a doorway |z|<1.2, y<3; emissive panel at y=5.7,
+    x in [6,8], |z|<0.75, skirted down to y=5.0 around its perimeter.
+    Prop spheres fill the triangle budget in both rooms.
+    """
+    rng = np.random.default_rng(seed)
+    meshes = []
+
+    shell = make_cube(1.0)
+    shell.positions *= np.array([24.0, 6.0, 12.0], np.float32)
+    shell.positions[:, 1] += 3.0
+    meshes.append(shell)
+
+    # Divider wall at x=0 (zero thickness; intersection is two-sided) with
+    # a doorway hole z in [-1.2, 1.2], y in [0, 3].
+    dz, dy = 1.2, 3.0
+    meshes.append(_rect((0, 0, -6), (0, 0, -dz), (0, 6, -dz), (0, 6, -6)))
+    meshes.append(_rect((0, 0, dz), (0, 0, 6), (0, 6, 6), (0, 6, dz)))
+    meshes.append(_rect((0, dy, -dz), (0, dy, dz), (0, 6, dz), (0, 6, -dz)))
+
+    # Recessed fixture in the lit room: downward panel + 0.7-deep skirt.
+    px0, px1, pz, py, sy = 6.0, 8.0, 0.75, 5.7, 5.0
+    meshes.append(_rect((px0, py, -pz), (px1, py, -pz), (px1, py, pz), (px0, py, pz)))
+    for (a, b) in (
+        ((px0, py, -pz), (px1, py, -pz)),
+        ((px1, py, -pz), (px1, py, pz)),
+        ((px1, py, pz), (px0, py, pz)),
+        ((px0, py, pz), (px0, py, -pz)),
+    ):
+        meshes.append(_rect(a, b, (b[0], sy, b[2]), (a[0], sy, a[2])))
+
+    base = merge_meshes(meshes)
+    budget = max(0, target_triangles - base.triangle_count)
+    tris_per_prop = 2 * 12 * 24 - 2 * 24
+    n_props = max(1, budget // tris_per_prop)
+    props = []
+    for _ in range(n_props):
+        x = rng.uniform(-11, 11)
+        if abs(x) < 1.0:
+            x = np.sign(x) * 1.0  # keep the doorway clear
+        center = np.array(
+            [x, rng.uniform(0.4, 2.5), rng.uniform(-5.2, 5.2)], np.float32
+        )
+        props.append(
+            make_uv_sphere(float(rng.uniform(0.2, 0.7)), center=center,
+                           rings=12, segments=24)
+        )
+    return merge_meshes([base] + props)
+
+
+def tworooms_materials(mesh: MeshData, seed: int = 29):
+    """Material assignment for :func:`make_tworooms`: grey diffuse
+    structure, mixed diffuse props, one small bright emissive panel
+    (identified by the fixture's y-band — the skirt and ceiling fall
+    outside it). Same return contract as :func:`atrium_materials`."""
+    from minipath_tpu_torch.scene.materials import emissive, lambertian, metal
+
+    centroid = mesh.positions[mesh.triangles].mean(axis=1)
+    mats = np.zeros(mesh.triangle_count, np.int32)
+    panel = (
+        (np.abs(centroid[:, 1] - 5.7) < 0.05)
+        & (centroid[:, 0] > 5.5)
+        & (np.abs(centroid[:, 2]) < 1.0)
+    )
+    mats[panel] = 3
+    rng = np.random.default_rng(seed)
+    props = (centroid[:, 1] > 0.1) & (centroid[:, 1] < 3.5)
+    mats[props] = rng.integers(1, 3, props.sum())
+    dicts = [
+        lambertian((0.6, 0.58, 0.55)),  # 0 structure
+        lambertian((0.65, 0.3, 0.25)),  # 1
+        metal((0.8, 0.78, 0.7), 0.2),  # 2
+        # Small area, high radiance: the whole scene's light budget
+        # through ~3 m^2 of recessed panel.
+        emissive((1.0, 0.93, 0.8), 60.0),  # 3
+    ]
+    return mats, dicts

@@ -160,3 +160,40 @@ def test_sample_lights_and_hit_pdf_sobol_match(lit_scenes, name):
     wp = jm.hit_light_pdf(jl, jnp.asarray(lanes), jnp.asarray(_np(got[1])), jnp.asarray(t))
     np.testing.assert_allclose(_np(gp), _np(wp), rtol=RTOL)
     assert np.all(_np(gp)[::7] == 0) and np.all(_np(gp)[2::7] > 0)
+
+
+@pytest.mark.parametrize("target", [0, 3000])
+def test_tworooms_mesh_and_materials_equal(target):
+    """``make_tworooms`` and ``tworooms_materials`` are NumPy copies: the
+    mesh, the material ids and the table equal the JAX package's bit for
+    bit, at the bare shell with one prop and with the props of a 3,000
+    triangle budget."""
+    mesh, want_mesh = procedural.make_tworooms(target), jax_procedural.make_tworooms(target)
+    for f in ("triangles", "positions", "normals", "texcoords"):
+        a, b = getattr(mesh, f), getattr(want_mesh, f)
+        assert a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b), f
+    ids, dicts = procedural.tworooms_materials(mesh)
+    want_ids, want_dicts = jax_procedural.tworooms_materials(want_mesh)
+    assert ids.dtype == want_ids.dtype
+    np.testing.assert_array_equal(ids, want_ids)
+    assert (ids == 3).sum() == 2 and set(ids.tolist()) == {0, 1, 2, 3}
+    _assert_tables_equal(tm.material_table(dicts, "cpu"), jm.material_table(want_dicts))
+    if target:
+        assert mesh.triangle_count > procedural.make_tworooms(0).triangle_count
+
+
+def test_tworooms_light_table_is_the_panel():
+    """The scene's one emitter: ``build_light_table`` finds the panel's two
+    triangles (2 x 1.5 m at y = 5.7, facing down or up as wound), equal to
+    the JAX package's table."""
+    mesh = procedural.make_tworooms(0)
+    ids, dicts = procedural.tworooms_materials(mesh)
+    arrays = jax_build_bvh(mesh, materials=ids, leaf_max=24).arrays
+    got = tm.build_light_table(arrays.tri_packets, arrays.tri_material, tm.material_table(dicts, "cpu"))
+    want = jm.build_light_table(arrays.tri_packets, arrays.tri_material, jm.material_table(dicts))
+    _assert_tables_equal(got, want)
+    assert got.v0.shape[0] == 2
+    corners = torch.cat([got.v0, got.v0 + got.e1, got.v0 + got.e2]).numpy()
+    np.testing.assert_allclose(corners[:, 1], 5.7, atol=1e-6)
+    assert corners[:, 0].min() == 6.0 and corners[:, 0].max() == 8.0 and np.abs(corners[:, 2]).max() == 0.75
+    np.testing.assert_allclose(float(got.area.sum()), 3.0, rtol=1e-6)

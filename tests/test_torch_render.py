@@ -70,6 +70,64 @@ def test_frame_parity_sobol_seed_matched():
     assert 0.05 < want[..., 3].mean() < 0.95  # the frame has hits and misses
 
 
+def _sobol_frame(bvh, generator, **kw):
+    return render_frame(
+        bvh.kernel_scene("cpu"), _camera(Camera).build_sampler((32, 24), "cpu"), generator,
+        width=32, height=24, spp=4, stack_size=bvh.recommended_stack_size, sobol=True, **kw,
+    )
+
+
+def test_render_frame_draws_its_pairing_seed_from_the_generator(bvh):
+    """One pairing seed a render, drawn from the generator as the JAX
+    ``render_frame_pallas`` draws it from its key: two Sobol frames from
+    generators with different seeds differ, one seed reproduces bit for bit,
+    and a given ``strat_seed`` gives the image it always gave, whatever the
+    generator."""
+    import torch
+
+    from minipath_tpu_torch.render.stratify import render_seed as torch_render_seed
+
+    def gen(seed):
+        return torch.Generator().manual_seed(seed)
+
+    a, b, a2 = _sobol_frame(bvh, gen(1)), _sobol_frame(bvh, gen(2)), _sobol_frame(bvh, gen(1))
+    assert torch.equal(a, a2)
+    assert not torch.equal(a, b) and (a - b).abs().max().item() > 1e-3
+    # The drawn seed is render_seed's first draw; given outright it makes the same frame.
+    drawn = torch_render_seed(gen(1))
+    assert torch.equal(a, _sobol_frame(bvh, None, strat_seed=drawn))
+    assert torch.equal(_sobol_frame(bvh, gen(1), strat_seed=99), _sobol_frame(bvh, gen(2), strat_seed=99))
+    assert torch.equal(_sobol_frame(bvh, gen(1), strat_seed=99), _sobol_frame(bvh, None, strat_seed=99))
+    # The seed 0 that frames had before the repair is now one seed among others.
+    assert not torch.equal(a, _sobol_frame(bvh, None, strat_seed=0))
+
+
+def test_render_frame_strata_pairings_follow_the_generator(bvh):
+    """Jittered strata (no Sobol): frames from two generators differ, and so
+    do two frames of one seed whose pairing seeds differ."""
+    import torch
+
+    def frame(seed, **kw):
+        return render_frame(
+            bvh.kernel_scene("cpu"), _camera(Camera).build_sampler((32, 24), "cpu"),
+            torch.Generator().manual_seed(seed), width=32, height=24, spp=4,
+            stack_size=bvh.recommended_stack_size, **kw,
+        )
+
+    assert torch.equal(frame(5), frame(5)) and not torch.equal(frame(5), frame(6))
+    assert not torch.equal(frame(5, strat_seed=1), frame(5, strat_seed=2))
+
+
+@pytest.mark.parametrize("kw", [dict(sobol=True), dict(strat_seed=3), dict(sobol=False, strat_seed=3)],
+                         ids=["sobol_no_seed", "strata_with_seed", "strata"])
+def test_render_frame_without_a_generator_needs_sobol_and_a_seed(bvh, kw):
+    with pytest.raises(ValueError, match="generator=None"):
+        render_frame(
+            bvh.kernel_scene("cpu"), _camera(Camera).build_sampler((32, 24), "cpu"), None,
+            width=32, height=24, spp=4, stack_size=bvh.recommended_stack_size, **kw,
+        )
+
+
 def test_render_api_surface(bvh):
     events = []
     lock = threading.Lock()

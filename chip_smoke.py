@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (``minipath_tpu_torch``) on one NVIDIA GPU.
 
-Run from the root of a checkout: ``python3 chip_smoke.py``. Sixteen phases,
+Run from the root of a checkout: ``python3 chip_smoke.py``. Eighteen phases,
 each printing its lines as it finishes; any failure raises and the script
 exits non-zero. There is no CPU path: without a CUDA device it fails at once.
 
@@ -99,6 +99,30 @@ after phase 9, while the path-traced atrium is on the card:
 16. The analytic sphere: ``render()`` of ``Scene(Sphere())`` at 1920x1080 @
     64 spp in frame mode; no kernel launches; mean and coverage against the
     CPU's frame at 256x144.
+
+Phases 17 and 18 drive multi-device rendering and adaptive sampling. They
+run after phase 12, while every scene is on the card; a mesh there is the
+one card four times (with more cards, also the real devices):
+
+17. Sharded: ``make_frame_renderer_sharded`` at 1920x1080 @ 64 spp in Sobol
+    mode against ``render_frame`` under the same seed, bit for bit over the
+    atrium's f32 layout (K1) and, over the big atrium's ``QuantizedScene``
+    (K3), by the share of solid pixels that agree (the JAX package's check);
+    ``render()`` with ``mesh=`` in tile and in frame mode, ``array_equal``
+    with ``render()``; the NEE-capped path-traced frame of phase 7 through
+    ``make_pt_renderer_sharded`` (K2) in chunks of 2 and of 8 samples, its
+    channel means within 0.5% of phase 7's and its values within 0.25 of
+    phase 7's as often as a second unsharded frame's are, and a Sobol frame
+    with no roulette sharded against ``render_frame_pt``, 99% of its pixels
+    within 1e-3. Warm seconds sharded and unsharded, and every kernel's
+    launches by path.
+18. Adaptive: ``render_frame_pt_adaptive`` on the path-traced atrium at
+    1920x1080, a 64-spp budget with a 2-spp pilot and chunks of 8, NEE at
+    depth 1: its spp map's mean within one chunk of the budget, its image
+    mean within 1% of phase 7's uniform frame; rounds, K2 launches, warm
+    seconds and host syncs. Then the CLI's ``--integrator pt --adaptive``
+    and ``--devices 0`` each write a PNG, and ``--devices`` beyond the cards
+    present exits 2.
 
 ``python3 chip_smoke.py --kernels-only`` runs phases 1, 2, 3, 6 and 10 alone:
 the traversal kernels against their plain versions, with their times, bounds
@@ -761,7 +785,7 @@ def phase_pt_main_path(parts, device, smi):
         f"launches {dict(kernels.trace_packets_pt.launches)} | peak device memory "
         f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB | image mean {img2[..., :3].mean():.5f}, "
         f"all finite")
-    return sum(launches.values()), img
+    return sum(launches.values()), img, warm
 
 
 def phase_card_vs_cpu(bvh, dicts, device, quantized=False, phase="8 card vs cpu"):
@@ -1392,6 +1416,264 @@ def phase_q_pt(big, pt_bvh, dicts, device, smi, f32_mean):
     return {m: launches[m] + nee_launches[m] for m in launches}
 
 
+# Phases 17-18: the sharded renderers over one card repeated, and the adaptive
+# sampler. The sharded path-traced frame against phase 7's (independent
+# samples): the JAX package's tolerances (tests/parallel_impl.py).
+# Independent samples of the atrium at 64 spp put only about 85% of values
+# within 0.25 of each other (the JAX package's 97% was set on a Lambertian
+# sphere at 8 spp), so the sharded frame is held to another unsharded
+# frame's share, and a seed-matched Sobol frame of SOBOL_SPP checks its paths.
+MESH_SIZE, SOBOL_SPP = 4, 8
+SHARD_MEAN_RTOL, SHARD_PIXEL_ATOL, SHARD_SHARE_SLACK = 5e-3, 0.25, 0.01
+# The JAX package's agreement of a sharded parity frame with the unsharded
+# one on solid pixels (tests/parallel_impl.py), over the quantized layout.
+SOLID_ATOL, SOLID_RTOL, SOLID_SHARE = 0.06, 0.15, 0.99
+ADAPTIVE_PILOT, ADAPTIVE_CHUNK, ADAPTIVE_MEAN_RTOL = 2, 8, 0.01
+CLI_SCENE = "atrium"
+
+
+def meshes(device):
+    """The meshes phase 17 shards over: one card four times, and the real
+    devices where there are more than one."""
+    from minipath_tpu_torch.parallel import make_device_mesh
+
+    out = [(f"{MESH_SIZE} x {device}", (device,) * MESH_SIZE)]
+    if torch.cuda.device_count() > 1:
+        out.append((f"{torch.cuda.device_count()} devices", make_device_mesh()))
+    return out
+
+
+def reset_launches():
+    from minipath_tpu_torch.render import kernels
+
+    kernels.trace_packets.launches = 0
+    for mode in kernels.trace_packets_pt.launches:
+        kernels.trace_packets_pt.launches[mode] = 0
+    reset_q_launches()
+
+
+def timed(fn):
+    """``(result, seconds)`` of ``fn()``, host clock from a synchronised
+    card to the result on the host."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def phase_sharded(bvh, big, parts, ref64, pt_warm, device, smi):
+    """Phase 17: the sharded parity frame against ``render_frame`` (bit for
+    bit in Sobol mode; by solid pixels over the quantized layout),
+    ``render(mesh=)`` against ``render()`` in both modes, and the sharded
+    path-traced frame against phase 7's. Returns the launches by path."""
+    from minipath_tpu_torch import RenderSettings, Scene, render
+    from minipath_tpu_torch.render.frame import make_frame_renderer_sharded, render_frame
+    from minipath_tpu_torch.render.wavefront import make_pt_renderer_sharded, render_frame_pt
+
+    t_phase = time.perf_counter()
+    sampler, _ = frame_inputs(device, WIDTH, HEIGHT)
+    by_path = {}
+    seed = 20240917
+
+    def parity(label, scene, stack, mesh=None):
+        """Cold and warm Sobol frames, unsharded or over ``mesh``."""
+        if mesh is None:
+            def run():
+                return render_frame(scene, sampler, None, width=WIDTH, height=HEIGHT, spp=SPP, stack_size=stack,
+                                    sobol=True, strat_seed=seed).cpu().numpy()
+        else:
+            r = make_frame_renderer_sharded(mesh, width=WIDTH, height=HEIGHT, stack_size=stack)
+
+            def run():
+                return r(scene, sampler, None, SPP, sobol=True, strat_seed=seed).cpu().numpy()
+        _, cold = timed(run)
+        reset_launches()
+        img, warm = timed(run)
+        by_path[label] = {k: v for k, v in kernel_launch_counts().items() if v}
+        return img, warm, cold
+
+    for name, mesh in meshes(device):
+        for layout, tree, scene in (("f32", bvh, bvh.kernel_scene(device)),
+                                    ("quantized", big, big.quantized_scene(device))):
+            single, t1, _ = parity(f"parity {layout}", scene, tree.recommended_stack_size)
+            img, t4, cold = parity(f"sharded parity {layout} over {name}", scene, tree.recommended_stack_size, mesh)
+            equal = np.array_equal(img, single)
+            solid = (single[..., 3] == 1.0) & (img[..., 3] == 1.0)
+            a, b = single[..., 0][solid], img[..., 0][solid]
+            agree = float((np.abs(a - b) <= SOLID_ATOL + SOLID_RTOL * np.abs(b)).mean())
+            launches = by_path[f"sharded parity {layout} over {name}"]
+            text = (f"make_frame_renderer_sharded over {name}, {layout} layout ({tree.statistics()['triangles']} "
+                    f"triangles), {WIDTH}x{HEIGHT} @ {SPP} spp Sobol on {smi}: warm {t4:.3f} s (cold {cold:.3f} s) "
+                    f"against render_frame {t1:.3f} s | launches {launches} | bit for bit {equal}, solid pixels "
+                    f"{solid.mean():.4f} of the frame, agreeing {agree:.6f}")
+            if not launches or (layout == "f32" and not equal) or agree < SOLID_SHARE:
+                raise AssertionError(f"the sharded parity frame disagrees with render_frame: {text}")
+            log("17 sharded", text)
+
+        settings = RenderSettings(TILE, SPP, (WIDTH, HEIGHT))
+        for mode, cb in (("tile", lambda t, s: None), ("frame", None)):
+            images, secs = [], []
+            for label, kw in (("render()", dict(device=device)), (f"render(mesh={name})", dict(mesh=mesh))):
+                for _ in range(2):  # cold, then warm
+                    reset_launches()
+                    p = render(Scene(bvh), bench_camera(), settings, None, cb, seed=7, **kw)
+                    p.wait()
+                    by_path[f"{label} {mode} mode"] = {k: v for k, v in kernel_launch_counts().items() if v}
+                images.append(p.image())
+                secs.append(p.elapsed())
+            equal = np.array_equal(*images)
+            text = (f"render() in {mode} mode, {WIDTH}x{HEIGHT} @ {SPP} spp: mesh {name} warm {secs[1]:.3f} s against "
+                    f"{secs[0]:.3f} s unsharded | launches {by_path[f'render(mesh={name}) {mode} mode']} | "
+                    f"array_equal {equal}")
+            if not equal or not by_path[f"render(mesh={name}) {mode} mode"]:
+                raise AssertionError(f"render(mesh=) differs from render(): {text}")
+            log("17 sharded", text)
+
+        scene, table, lights, tracer, shadow = parts
+        pt_sampler, env = frame_inputs(device, PT_WIDTH, PT_HEIGHT)
+        pt_kw = dict(width=PT_WIDTH, height=PT_HEIGHT, samples_per_packet=2, bounces=PT_BOUNCES, lights=lights,
+                     shadow_tracer=shadow, nee_max_depth=1)
+        r = make_pt_renderer_sharded(mesh, tracer, **pt_kw)
+        # The same frame in chunks of 2 samples a shard: each shard's torch
+        # ops then cover as many lanes as an unsharded 2-sample chunk's.
+        wide = make_pt_renderer_sharded(mesh, tracer, **dict(pt_kw, samples_per_packet=2 * len(mesh)))
+
+        def pt_frame(renderer, seed):
+            gen = torch.Generator(device=device).manual_seed(seed)
+            return renderer(scene, table, pt_sampler, gen, PT_SPP, env=env).cpu().numpy()
+
+        img_wide, t_wide = timed(lambda: pt_frame(wide, 70))
+        reset_launches()
+        img, warm = timed(lambda: pt_frame(r, 71))
+        launches = by_path[f"sharded pt over {name}"] = {k: v for k, v in kernel_launch_counts().items() if v}
+        # A second unsharded frame: how close independent samples come to
+        # phase 7's, pixel by pixel.
+        other, warm1 = render_pt(parts, device, PT_WIDTH, PT_HEIGHT, PT_SPP, 1, 2, seed=72)
+        ref = ref64[..., :3].mean(axis=(0, 1))
+        means, means_wide = img[..., :3].mean(axis=(0, 1)), img_wide[..., :3].mean(axis=(0, 1))
+        rel = np.maximum(np.abs(means - ref), np.abs(means_wide - ref)) / ref
+        within = float((np.abs(img[..., :3] - ref64[..., :3]) < SHARD_PIXEL_ATOL).mean())
+        within1 = float((np.abs(other[..., :3] - ref64[..., :3]) < SHARD_PIXEL_ATOL).mean())
+        text = (f"make_pt_renderer_sharded over {name}, {PT_WIDTH}x{PT_HEIGHT} @ {PT_SPP} spp, {PT_BOUNCES} bounces, "
+                f"NEE at depth 1: warm {warm:.3f} s in chunks of 2 samples, {t_wide:.3f} s in chunks of "
+                f"{2 * len(mesh)}, against render_frame_pt {warm1:.3f} s (phase 7: {pt_warm:.3f} s) | launches "
+                f"{launches} | channel means {np.round(means, 5).tolist()} and {np.round(means_wide, 5).tolist()} "
+                f"against phase 7's {np.round(ref, 5).tolist()} (largest rel {rel.max():.3e}) | values within "
+                f"{SHARD_PIXEL_ATOL} of phase 7's: sharded {within:.4f}, another unsharded frame {within1:.4f}")
+        if (not np.isfinite(img).all() or not np.isfinite(img_wide).all() or rel.max() > SHARD_MEAN_RTOL
+                or within < within1 - SHARD_SHARE_SLACK or not launches.get("K2 closest")
+                or not launches.get("K2 anyhit")):
+            raise AssertionError(f"the sharded path-traced frame disagrees with phase 7's: {text}")
+        log("17 sharded", text)
+
+        # Seed-matched: Sobol strata, no roulette; the shards trace the
+        # unsharded frame's paths.
+        sobol_kw = dict(pt_kw, sobol=True, shadow_rr=False, rr_start=PT_BOUNCES)
+        a = make_pt_renderer_sharded(mesh, tracer, **sobol_kw)(scene, table, pt_sampler, None, SOBOL_SPP, env=env,
+                                                                strat_seed=seed)
+        b = render_frame_pt(tracer, scene, table, pt_sampler, None, spp=SOBOL_SPP, env=env, strat_seed=seed,
+                            **sobol_kw)
+        close = float(((a - b).abs().amax(dim=-1) <= FRAME_PIXEL_ATOL).float().mean())
+        rel = abs(a[..., :3].mean().item() - b[..., :3].mean().item()) / b[..., :3].mean().item()
+        text = (f"Sobol {PT_WIDTH}x{PT_HEIGHT} @ {SOBOL_SPP} spp, no roulette, sharded over {name} against "
+                f"render_frame_pt: bit for bit {torch.equal(a, b)}, pixels within {FRAME_PIXEL_ATOL} {close:.6f}, "
+                f"means rel {rel:.2e}")
+        if close < FRAME_PIXEL_SHARE or rel > FRAME_MEAN_RTOL:
+            raise AssertionError(f"the seed-matched sharded frame disagrees: {text}")
+        log("17 sharded", text)
+    log("17 sharded", f"phase time {time.perf_counter() - t_phase:.1f} s")
+    return by_path
+
+
+def phase_adaptive(parts, pt_mean, device, smi):
+    """Phase 18: ``render_frame_pt_adaptive`` at full width against phase 7's
+    uniform frame, then the CLI's ``--adaptive`` and ``--devices``."""
+    import warnings
+
+    from minipath_tpu_torch.render import adaptive
+
+    t_phase = time.perf_counter()
+    scene, table, lights, tracer, shadow = parts
+    sampler, env = frame_inputs(device, PT_WIDTH, PT_HEIGHT)
+    rounds = []
+    chunk_blocks = adaptive._chunk_blocks
+
+    def counting(*args, **kw):
+        rounds.append(args[6])  # live rays
+        return chunk_blocks(*args, **kw)
+
+    def frame(seed):
+        rounds.clear()
+        gen = torch.Generator(device=device).manual_seed(seed)
+        img, spp_map = adaptive.render_frame_pt_adaptive(
+            tracer, scene, table, sampler, gen, width=PT_WIDTH, height=PT_HEIGHT, spp=PT_SPP, bounces=PT_BOUNCES,
+            env=env, pilot_spp=ADAPTIVE_PILOT, samples_per_packet=ADAPTIVE_CHUNK, lights=lights,
+            shadow_tracer=shadow, nee_max_depth=1, return_spp_map=True,
+        )
+        return img.cpu().numpy(), spp_map.cpu().numpy()
+
+    adaptive._chunk_blocks = counting
+    try:
+        _, cold = timed(lambda: frame(80))
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats(device)
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                (img, spp_map), warm = timed(lambda: frame(81))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    finally:
+        adaptive._chunk_blocks = chunk_blocks
+    launches = {k: v for k, v in kernel_launch_counts().items() if v}
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    mean = float(img[..., :3].mean())
+    shift = (mean - pt_mean) / pt_mean
+    n_rays = PT_WIDTH * PT_HEIGHT
+    text = (f"render_frame_pt_adaptive {PT_WIDTH}x{PT_HEIGHT}, budget {PT_SPP} spp (pilot {ADAPTIVE_PILOT}, chunks "
+            f"of {ADAPTIVE_CHUNK}), {PT_BOUNCES} bounces, NEE at depth 1 on {smi}: warm {warm:.3f} s (cold {cold:.3f} "
+            f"s) | {len(rounds) - 1} rounds after the pilot, live rays per round from {max(rounds[1:])} down to "
+            f"{min(rounds[1:])} | launches {launches} | host syncs {syncs} | peak device memory "
+            f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB | spp map mean {spp_map.mean():.4f}, min "
+            f"{spp_map.min():.0f}, max {spp_map.max():.0f} | image mean {mean:.5f} against phase 7's uniform "
+            f"{pt_mean:.5f} (shift {shift:+.3e}) | {n_rays * PT_SPP / warm / 1e6:.2f} Mpaths/s")
+    if (not np.isfinite(img).all() or abs(spp_map.mean() - PT_SPP) > ADAPTIVE_CHUNK
+            or spp_map.min() < ADAPTIVE_PILOT + ADAPTIVE_CHUNK or abs(shift) > ADAPTIVE_MEAN_RTOL
+            or not launches.get("K2 closest") or not launches.get("K2 anyhit")):
+        raise AssertionError(f"the adaptive frame is off: {text}")
+    log("18 adaptive", text)
+
+    # The CLI's --adaptive and --devices, both at once; --devices beyond the
+    # cards present must exit 2 before it builds anything.
+    with tempfile.TemporaryDirectory() as tmp:
+        base = [sys.executable, "-m", "minipath_tpu_torch.cli", "--scene", CLI_SCENE, "--integrator", "pt",
+                "--width", "480", "--height", "270", "--no-stats"]
+        on = ["--device", device.type]
+        runs = {
+            "--adaptive": (base + on + ["--adaptive", "--nee", "--spp", "16", "-o", f"{tmp}/adaptive.png"], 0),
+            "--devices 0": (base + on + ["--devices", "0", "--spp", "8", "-o", f"{tmp}/devices.png"], 0),
+            "--devices N+1": (base + ["--device", "cuda", "--devices", str(torch.cuda.device_count() + 1),
+                                      "-o", f"{tmp}/none.png"], 2),
+        }
+        t0 = time.perf_counter()
+        procs = {k: subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for k, (cmd, _) in runs.items()}
+        for k, proc in procs.items():
+            try:
+                _, err = proc.communicate(timeout=600)
+            finally:
+                proc.kill()
+            png = Path(runs[k][0][-1])
+            want_rc = runs[k][1]
+            if proc.returncode != want_rc or png.exists() != (want_rc == 0):
+                raise AssertionError(f"CLI {k} exited {proc.returncode} (want {want_rc}):\n{err[-4000:]}")
+            said = [ln for ln in err.splitlines() if ln.startswith(("path traced", "--devices"))]
+            log("18 adaptive", f"CLI {k}: exit {proc.returncode} | {' '.join(said)}")
+        log("18 adaptive", f"CLI runs {time.perf_counter() - t0:.1f} s; phase time {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 # Phase 13: the chain kernels' checks and shapes. K4 at the device-health
 # probe's shape; K5 at the bf16 tool's default and at a card-filling shape.
 CHAIN_CHECK_ITERS = (1, 7, 64, 65536)
@@ -1646,13 +1928,12 @@ def main() -> int:
     launches = phase_main_path(bvh, device, smi, (("the CLI's native-built tree, leaves <= 56", cli_tree),
                                                   ("the bench's native-built tree, leaves <= 24",
                                                    native_tree(leaf_max=24))))
-    del bvh
     phase_cli()
 
     pt_bvh, dicts = build_pt_atrium()
     parts = pt_parts(pt_bvh, dicts, device)
     k2, sets = phase_k2(pt_bvh, parts, device)
-    k2_launches, ref64 = phase_pt_main_path(parts, device, smi)
+    k2_launches, ref64, pt_warm = phase_pt_main_path(parts, device, smi)
     pt_mean = float(ref64[..., :3].mean())
     phase_card_vs_cpu(pt_bvh, dicts, device)
     phase_pt_cli()
@@ -1660,7 +1941,6 @@ def main() -> int:
         profile_pt_frame(parts, device, args.profile)
 
     phase_denoise(pt_bvh, parts, ref64, device, smi)
-    del ref64
     phase_denoise_cli()
     phase_gui(cli_tree, pt_bvh, dicts, device, smi)
     del cli_tree, mesh
@@ -1674,7 +1954,9 @@ def main() -> int:
         q_launches[mode] += n
     if args.profile is not None:
         profile_pt_frame(pt_parts(pt_bvh, dicts, device, quantized=True), device, args.profile, name="pt_q")
-    del big, pt_bvh, parts
+    by_path = phase_sharded(bvh, big, parts, ref64, pt_warm, device, smi)
+    by_path["adaptive pt"] = phase_adaptive(parts, pt_mean, device, smi)
+    del big, pt_bvh, parts, bvh, ref64
     k4, k4_launches, k5, k5_launches, _ = phase_chain(device, smi)
     phase_bench(smi)
 
@@ -1690,14 +1972,19 @@ def main() -> int:
             **extra,
         }
 
+    def paths(kernel):
+        """Phases 17 and 18's launches of one kernel, by path."""
+        out = {path: sum(n for k, n in counts.items() if k.split()[0] == kernel) for path, counts in by_path.items()}
+        return {path: n for path, n in out.items() if n}
+
     chain = "minipath_tpu_torch/csrc/chain.cu"
     print(json.dumps({"kernels": [
         entry("traverse", "minipath_tpu_torch/csrc/traverse.cu", "minipath_tpu/render/pallas_kernels.py:165",
-              launches, kernel, "dispatch slice"),
+              launches, kernel, "dispatch slice", launches_by_path=paths("K1")),
         entry("traverse_pt", "minipath_tpu_torch/csrc/traverse.cu", "minipath_tpu/render/pallas_kernels.py:1375",
-              k2_launches, k2, "bounce1"),
+              k2_launches, k2, "bounce1", launches_by_path=paths("K2")),
         entry("traverse_q", "minipath_tpu_torch/csrc/traverse_q.cu", "minipath_tpu/render/pallas_kernels.py:650",
-              sum(q_launches.values()), k3, "full", launches_by_mode=q_launches),
+              sum(q_launches.values()), k3, "full", launches_by_mode=q_launches, launches_by_path=paths("K3")),
         entry("vpu_chain", chain, "minipath_tpu/utils/calibrate.py:44", k4_launches, k4, CHAIN_CHECK_ITERS[-1]),
         *(entry(f"chain_{short}", chain, "tools/microbench_vpu_bf16.py:24", k5_launches[str(dtype)[6:]],
                 {key: r for (key, d), r in k5.items() if d == dtype}, "default",

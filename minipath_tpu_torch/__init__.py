@@ -18,15 +18,23 @@ which ``trace_scene`` and the path tracer's tracers dispatch to by type;
 the post-process (``atrous_denoise`` with its guide buffers from
 ``render_aux``, the CLI's ``--denoise`` and ``--aov``), the analytic
 ``Sphere``, and the interactive viewer (``minipath_tpu_torch.gui``: the
-tile-streaming ``GuiController`` and the progressive path-traced viewport).
+tile-streaming ``GuiController`` and the progressive path-traced viewport);
+multi-device rendering over a mesh of devices (``make_device_mesh``,
+``render(mesh=)``, ``make_frame_renderer_sharded``,
+``make_pt_renderer_sharded``; the CLI's ``--devices``) and adaptive
+sampling (``render_frame_pt_adaptive``, the CLI's ``--adaptive``).
 """
 
 from minipath_tpu_torch.camera import Camera, CameraSampler
+from minipath_tpu_torch.parallel import make_device_mesh
 from minipath_tpu_torch.render import RenderProgress, RenderSettings, render
+from minipath_tpu_torch.render.adaptive import render_frame_pt_adaptive
 from minipath_tpu_torch.render.denoise import atrous_denoise, render_aux
+from minipath_tpu_torch.render.frame import make_frame_renderer_sharded
 from minipath_tpu_torch.render.kernels_q import QPTScene, QuantizedScene, trace_scene
 from minipath_tpu_torch.render.wavefront import (
     make_full_tracer,
+    make_pt_renderer_sharded,
     make_pt_shadow_tracer,
     make_pt_tracer,
     render_frame_pt,
@@ -62,7 +70,10 @@ __all__ = [
     "dielectric",
     "emissive",
     "lambertian",
+    "make_device_mesh",
+    "make_frame_renderer_sharded",
     "make_full_tracer",
+    "make_pt_renderer_sharded",
     "make_pt_shadow_tracer",
     "make_pt_tracer",
     "material_table",
@@ -70,6 +81,7 @@ __all__ = [
     "render",
     "render_aux",
     "render_frame_pt",
+    "render_frame_pt_adaptive",
     "trace_scene",
 ]
 

@@ -20,7 +20,14 @@ the edge-avoiding a-trous filter of ``render/denoise.py``, variance-guided
 from 2 spp on) and written with their first-hit normal and depth buffers
 (``--aov PREFIX``).
 
-Not ported: ``--devices`` and ``--adaptive``.
+``--devices N`` shards the render over a mesh of N devices of ``--device``'s
+type (``parallel.make_device_mesh``; 0 takes them all, and ``--device cpu``
+repeats the one CPU device): the parity path through ``render(mesh=)``, the
+path tracer through ``make_pt_renderer_sharded``. Asking for more devices
+than there are exits 2. ``--adaptive`` path traces with
+``render_frame_pt_adaptive`` (a 2-spp pilot allocates the budget toward
+noisy pixel blocks); it is single-device, uses jittered strata, and leaves
+``--denoise`` the fixed-sigma filter.
 """
 
 from __future__ import annotations
@@ -28,6 +35,10 @@ from __future__ import annotations
 import argparse
 import sys
 import time
+
+
+# --adaptive's pilot samples and chunk (render_frame_pt_adaptive's defaults).
+ADAPTIVE_PILOT, ADAPTIVE_CHUNK = 2, 8
 
 
 def _positive_int(text: str) -> int:
@@ -70,6 +81,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda", help="torch device to render on")
     p.add_argument("--bounces", type=int, default=6, help="path-tracer bounce budget")
+    p.add_argument("--devices", type=int, default=1, help="shard the render across N devices of --device's type "
+                   "(a device mesh; --device cpu repeats the CPU); 0 = all available")
     p.add_argument("--no-compaction", action="store_true", help="path tracer: no wavefront compaction between bounces")
     p.add_argument("--nee", action="store_true", help="path tracer: next-event estimation (light sampling with MIS; "
                    "needs emissive materials, e.g. --scene atrium)")
@@ -89,6 +102,8 @@ def build_parser() -> argparse.ArgumentParser:
                    "first-hit normals/depth (biased post-process; the saved PNG only)")
     p.add_argument("--aov", metavar="PREFIX", default=None, help="path tracer: also write first-hit AOVs "
                    "<PREFIX>_normal.png and <PREFIX>_depth.png")
+    p.add_argument("--adaptive", action="store_true", help="path tracer: adaptive sampling, a 2-spp pilot "
+                   "allocates the --spp budget toward noisy pixel blocks (unbiased; single-device; needs --spp >= 10)")
     p.add_argument("--clamp", type=float, default=None, metavar="L", help="path tracer: cap each sample's "
                    "radiance at L before averaging (firefly suppression; biased)")
     return p
@@ -132,6 +147,21 @@ def main(argv=None) -> int:
     if args.sobol and args.iid:
         print("--sobol and --iid are mutually exclusive", file=sys.stderr)
         return 2
+    mesh = None
+    if args.devices != 1:
+        from minipath_tpu_torch.parallel import make_device_mesh
+
+        try:
+            mesh = make_device_mesh(args.devices or None, args.device)
+        except ValueError as e:
+            print(f"--devices {args.devices}: {e}", file=sys.stderr)
+            return 2
+        if len(mesh) == 1:
+            mesh = None
+    if args.adaptive and args.integrator == "pt" and mesh is None and args.spp < ADAPTIVE_PILOT + ADAPTIVE_CHUNK:
+        print(f"--adaptive needs --spp >= {ADAPTIVE_PILOT + ADAPTIVE_CHUNK} (a {ADAPTIVE_PILOT}-spp pilot and one "
+              f"{ADAPTIVE_CHUNK}-sample chunk)", file=sys.stderr)
+        return 2
     bvh, material_dicts = load_scene(args)
     if not args.no_stats:
         bvh.print_statistics()
@@ -143,7 +173,7 @@ def main(argv=None) -> int:
         .focus_distance(args.focus)
     )
     if args.integrator == "pt":
-        return _render_pt(args, bvh, camera, material_dicts)
+        return _render_pt(args, bvh, camera, material_dicts, mesh)
     settings = RenderSettings(
         tile_size=args.tile_size,
         sample_count=args.spp,
@@ -156,7 +186,7 @@ def main(argv=None) -> int:
 
     progress = render(
         Scene(bvh), camera, settings, finished_tile_callback=on_tile,
-        device=args.device, seed=args.seed,
+        device=args.device, seed=args.seed, mesh=mesh,
     )
     try:
         progress.wait()
@@ -171,7 +201,7 @@ def main(argv=None) -> int:
     rays = args.width * args.height * spp
     elapsed = progress.elapsed()
     print(
-        f"rendered {args.width}x{args.height} @ {spp} spp on {args.device} in {elapsed:.2f}s "
+        f"rendered {args.width}x{args.height} @ {spp} spp on {_where(args, mesh)} in {elapsed:.2f}s "
         f"({rays / elapsed / 1e6:.1f} Mrays/s)",
         file=sys.stderr,
     )
@@ -180,12 +210,23 @@ def main(argv=None) -> int:
     return 0
 
 
-def _render_pt(args, bvh, camera, material_dicts) -> int:
-    """Path-traced whole frame under a sky environment, gamma 2.2."""
+def _where(args, mesh) -> str:
+    return args.device if mesh is None else f"{len(mesh)} x {args.device}"
+
+
+def _render_pt(args, bvh, camera, material_dicts, mesh=None) -> int:
+    """Path-traced whole frame under a sky environment, gamma 2.2; sharded
+    over ``mesh`` when one is given, else adaptive under ``--adaptive``."""
     import numpy as np
     import torch
 
-    from minipath_tpu_torch.render.wavefront import make_pt_shadow_tracer, make_pt_tracer, render_frame_pt
+    from minipath_tpu_torch.render.adaptive import render_frame_pt_adaptive
+    from minipath_tpu_torch.render.wavefront import (
+        make_pt_renderer_sharded,
+        make_pt_shadow_tracer,
+        make_pt_tracer,
+        render_frame_pt,
+    )
     from minipath_tpu_torch.scene.materials import Environment, build_light_table, lambertian, material_table
     from minipath_tpu_torch.utils.image import color_to_image, save_png
 
@@ -206,32 +247,59 @@ def _render_pt(args, bvh, camera, material_dicts) -> int:
     if args.nee_depth is not None and nee_depth is None:
         print("--nee-depth has no effect: requires --nee and an emissive scene; rendering without light "
               "sampling", file=sys.stderr)
-    t0 = time.perf_counter()
-    img = render_frame_pt(
-        tracer,
-        scene,
-        table,
-        camera.build_sampler((args.width, args.height), device),
-        torch.Generator(device=device).manual_seed(args.seed),
-        width=args.width,
-        height=args.height,
-        spp=args.spp,
+    sampler = camera.build_sampler((args.width, args.height), device)
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+    common = dict(
         bounces=args.bounces,
-        env=Environment.sky(device),
-        samples_per_packet=min(8, args.spp),
         compaction=not args.no_compaction,
         lights=lights,
         shadow_tracer=shadow_tracer,
         shadow_rr=not args.no_shadow_rr,
         nee_max_depth=nee_depth,
         rr_start=args.rr_start,
-        rr_floor=args.rr_floor,
-        min_live_frac=args.tail_cut,
-        stratify=not args.iid,
-        sobol=args.sobol,
-        return_variance=args.denoise and args.spp >= 2,
-        clamp=args.clamp,
     )
+    t0 = time.perf_counter()
+    if mesh is not None:
+        if args.adaptive:
+            print("--adaptive is single-device only; rendering uniform spp across the mesh", file=sys.stderr)
+        if args.denoise:
+            print("--denoise on the sharded renderer uses the fixed-sigma filter (no variance buffer)",
+                  file=sys.stderr)
+        renderer = make_pt_renderer_sharded(
+            mesh, tracer, width=args.width, height=args.height, samples_per_packet=min(8, args.spp),
+            rr_floor=args.rr_floor, min_live_frac=args.tail_cut, stratify=not args.iid, sobol=args.sobol, **common,
+        )
+        img = renderer(scene, table, sampler, generator, args.spp, env=Environment.sky(device))
+    elif args.adaptive:
+        if args.sobol:
+            print("--sobol with --adaptive is not supported; rendering with jittered strata", file=sys.stderr)
+        if args.denoise:
+            print("--denoise with --adaptive uses the fixed-sigma filter (no variance buffer)", file=sys.stderr)
+        img = render_frame_pt_adaptive(
+            tracer, scene, table, sampler, generator, width=args.width, height=args.height, spp=args.spp,
+            env=Environment.sky(device), pilot_spp=ADAPTIVE_PILOT, samples_per_packet=ADAPTIVE_CHUNK,
+            stratify=not args.iid, **common,
+        )
+    else:
+        img = render_frame_pt(
+            tracer,
+            scene,
+            table,
+            sampler,
+            generator,
+            width=args.width,
+            height=args.height,
+            spp=args.spp,
+            env=Environment.sky(device),
+            samples_per_packet=min(8, args.spp),
+            rr_floor=args.rr_floor,
+            min_live_frac=args.tail_cut,
+            stratify=not args.iid,
+            sobol=args.sobol,
+            return_variance=args.denoise and args.spp >= 2,
+            clamp=args.clamp,
+            **common,
+        )
     var_img = None
     if isinstance(img, tuple):
         img, var_img = img
@@ -239,7 +307,7 @@ def _render_pt(args, bvh, camera, material_dicts) -> int:
     elapsed = time.perf_counter() - t0
     paths = args.width * args.height * args.spp
     print(
-        f"path traced {args.width}x{args.height} @ {args.spp} spp, {args.bounces} bounces on {args.device} "
+        f"path traced {args.width}x{args.height} @ {args.spp} spp, {args.bounces} bounces on {_where(args, mesh)} "
         f"in {elapsed:.2f}s ({paths / elapsed / 1e6:.1f} Mpaths/s)",
         file=sys.stderr,
     )

@@ -1,10 +1,11 @@
 """Whole-frame parity renderer on the traversal kernel.
 
-Port of ``minipath_tpu/render/frame.py::render_frame_pallas`` together with
-the ray generation it calls in ``minipath_tpu/parallel/mesh.py``
-(``gen_rays9_blocks``, ``gen_frame_rays9``, ``unpack_frame``). One chunk of
-samples at a time: camera rays for every pixel block, one trace, parity
-shading (grayscale ``|d.n|``, alpha on hit), and a sum on the device.
+Port of ``minipath_tpu/render/frame.py`` (``render_frame_pallas``,
+``make_frame_renderer_sharded``) together with the ray generation they call
+in ``minipath_tpu/parallel/mesh.py`` (``gen_rays9_blocks``,
+``gen_frame_rays9``, ``unpack_frame``). One chunk of samples at a time:
+camera rays for every pixel block, one trace, parity shading (grayscale
+``|d.n|``, alpha on hit), and a sum on the device.
 
 Packets are multi-sample: a ``px_block`` pixel tile repeated for each sample
 of the chunk, sample-major. The kernel traces one ray per thread, so the
@@ -16,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from minipath_tpu_torch.camera import CameraSampler, sample_rays
+from minipath_tpu_torch.parallel import replicate, shard_generators, shard_ranges
 from minipath_tpu_torch.render.kernels import KernelHits, KernelScene, rays_to_rays9
 from minipath_tpu_torch.render.kernels_q import QuantizedScene, trace_scene
 from minipath_tpu_torch.render.stratify import render_seed
@@ -41,21 +43,31 @@ def gen_rays9_blocks(
     strat_spp: int | None = None,
     strat_offset: int = 0,
     strat_seed: int = 0,
+    block_ids: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Multi-sample packet rays ``(block_count, 9, samples*bh*bw)`` for the
     pixel blocks ``block_start ..`` in the frame's row-major block order
-    (``wc`` blocks per row).
+    (``wc`` blocks per row). A shard of a mesh gives its own range this way.
 
     ``strat_spp`` enables per-pixel stratified film/lens sampling over the
     pixel's TOTAL spp (negative: Owen-scrambled Sobol); ``strat_offset`` is
     this chunk's first sample index; ``strat_seed`` re-randomizes the
     stratum pairings per render and is the same for every chunk of one
     render. Pixel ids are ``y * (wc * bw) + x``, XORed with the seed.
+
+    ``block_ids`` (``(block_count,)`` integers) overrides the contiguous
+    range with an explicit block index per packet: the adaptive sampler
+    renders packets in allocation order this way. Pixel ids and strata
+    follow the block, so a block's rays do not depend on where in the batch
+    it sits.
     """
     dev = sampler.device
     bh, bw = px_block
     bp = bh * bw
-    b_idx = block_start + torch.arange(block_count, device=dev)[:, None]
+    if block_ids is not None:
+        b_idx = block_ids.to(dev, torch.int64)[:, None]
+    else:
+        b_idx = block_start + torch.arange(block_count, device=dev)[:, None]
     p_idx = torch.arange(bp, device=dev)[None, :]
     by, bx = b_idx // wc, b_idx % wc
     py, px = p_idx // bw, p_idx % bw
@@ -186,3 +198,66 @@ def render_frame(
         done += n
     img = unpack_frame(acc, width, height, (hc, wc), px_block)
     return img / spp
+
+
+def make_frame_renderer_sharded(
+    mesh,
+    *,
+    width: int,
+    height: int,
+    stack_size: int,
+    px_block=(16, 16),
+    samples_per_packet: int = 16,
+):
+    """The whole-frame parity renderer sharded over ``mesh``, a sequence of
+    devices (``parallel.make_device_mesh``; it may repeat one).
+
+    The frame's pixel blocks are split into contiguous ranges, one per
+    device (the scheduler role of ``machinery.rs:31-62,205-210`` at device
+    granularity). The scene and sampler are replicated once per distinct
+    device; each shard generates the camera rays of its own range, traces
+    them with ``trace_scene`` (K1, or K3 in full mode over a
+    :class:`QuantizedScene`) and shades them on its device; the shards'
+    sums are gathered onto ``mesh[0]`` at the end.
+
+    Returns ``render(scene, sampler, generator, spp, stratify=True,
+    sobol=False, strat_seed=None) -> (H, W, 4)`` mean image on ``mesh[0]``,
+    with :func:`render_frame`'s arguments. Each shard draws its film and
+    lens uniforms from a generator of its own, seeded from ``generator``
+    (:func:`parallel.shard_generators`); the pairing seed is drawn once per
+    render and shared by every shard. In Sobol mode no uniform is drawn, so
+    the sharded frame equals :func:`render_frame`'s for the same seed bit
+    for bit.
+    """
+    mesh = tuple(torch.device(d) for d in mesh)
+    bh, bw = px_block
+    hc, wc = -(-height // bh), -(-width // bw)
+    ranges = shard_ranges(hc * wc, len(mesh))
+
+    def render(scene, sampler, generator, spp: int, stratify: bool = True, sobol: bool = False,
+               strat_seed: int | None = None) -> torch.Tensor:
+        if generator is None and (strat_seed is None or not (stratify and sobol)):
+            raise ValueError("generator=None needs sobol=True and a strat_seed")
+        if strat_seed is None:
+            strat_seed = render_seed(generator) if stratify else 0
+        strat_spp = (-spp if sobol else spp) if stratify else None
+        scenes, samplers = replicate(scene, mesh), replicate(sampler, mesh)
+        gens = shard_generators(None if stratify and sobol else generator, mesh)
+        acc = [None] * len(mesh)
+        done = 0
+        while done < spp:
+            n = min(samples_per_packet, spp - done)
+            for d, (lo, hi) in enumerate(ranges):
+                if lo == hi:
+                    continue
+                rays9 = gen_rays9_blocks(
+                    samplers[d], gens[d], lo, block_count=hi - lo, wc=wc, px_block=px_block, samples=n,
+                    strat_spp=strat_spp, strat_offset=done, strat_seed=strat_seed,
+                )
+                part = shade_parity_sum(rays9, trace_scene(scenes[d], rays9, stack_size=stack_size), n)
+                acc[d] = part if acc[d] is None else acc[d] + part
+            done += n
+        sums = torch.cat([a.to(mesh[0]) for a in acc if a is not None])
+        return unpack_frame(sums, width, height, (hc, wc), px_block) / spp
+
+    return render

@@ -16,6 +16,7 @@ import torch
 
 from minipath_tpu_torch.camera import CameraSampler, sample_rays
 from minipath_tpu_torch.geometry.ray import Rays
+from minipath_tpu_torch.parallel import map_shards
 from minipath_tpu_torch.render.frame import CAMERA_SALT, shade_parity_sum
 from minipath_tpu_torch.render.hit import HitRecords
 from minipath_tpu_torch.render.kernels import KernelScene, rays_to_rays9
@@ -112,20 +113,25 @@ def render_tile_batch_sphere(
     tile_shape,
     packet_shape,
     spp: int,
+    mesh=None,
 ) -> torch.Tensor:
     """Batched-tile renderer of the analytic sphere
     (``scene/primitives.py``): the rays of :func:`render_tile_batch_bvh`,
     intersected by ``sphere.intersect`` and shaded by
     :func:`shade_normal_dot`. Returns ``(K, th, tw, 4)`` RGBA sums over
-    ``spp`` samples."""
+    ``spp`` samples. ``mesh`` as in :func:`render_tile_batch_bvh`."""
     K = tile_origins.shape[0]
     rays = tile_batch_rays(
         sampler, tile_origins, generator, strat_seed,
         tile_shape=tile_shape, packet_shape=packet_shape, spp=spp,
     )
-    rgba = shade_normal_dot(rays, sphere.intersect(rays))  # (K*nb, spp*bp, 4)
-    nb, bp = rgba.shape[0] // K, rgba.shape[1] // spp
-    rgba_sum = rgba.reshape(K * nb, spp, bp, 4).sum(dim=1)
+    nb, bp = rays.origin.shape[0] // K, rays.origin.shape[1] // spp
+
+    def shade_sum(rays):
+        rgba = shade_normal_dot(rays, sphere.intersect(rays))  # (packets, spp*bp, 4)
+        return rgba.reshape(-1, spp, bp, 4).sum(dim=1)
+
+    rgba_sum = shade_sum(rays) if mesh is None else map_shards(shade_sum, rays, mesh)
     return unpack_tile(rgba_sum.reshape(K, nb, bp, 4), tile_shape, packet_shape)
 
 
@@ -140,15 +146,25 @@ def render_tile_batch_bvh(
     packet_shape,
     spp: int,
     stack_size: int,
+    mesh=None,
 ) -> torch.Tensor:
     """Batched-tile renderer: K tiles in one trace. Returns ``(K, th, tw,
-    4)`` RGBA sums over ``spp`` samples, stratified per pixel over them."""
+    4)`` RGBA sums over ``spp`` samples, stratified per pixel over them.
+
+    With a ``mesh`` (a sequence of devices), ``scene`` is a list of the
+    scene's replicas parallel to it (``parallel.replicate``): the rays are
+    made on ``mesh[0]`` exactly as without a mesh, each device traces and
+    shades a contiguous share of the packets, and the image is the same bit
+    for bit."""
     K = tile_origins.shape[0]
     rays9 = tile_batch_rays9(
         sampler, tile_origins, generator, strat_seed,
         tile_shape=tile_shape, packet_shape=packet_shape, spp=spp,
     )
     nb, bp = rays9.shape[0] // K, rays9.shape[2] // spp
-    kh = trace_scene(scene, rays9, stack_size=stack_size)
-    rgba_sum = shade_parity_sum(rays9, kh, spp)  # (K*nb, bp, 4)
+
+    def trace_shade(rays9, scene):
+        return shade_parity_sum(rays9, trace_scene(scene, rays9, stack_size=stack_size), spp)  # (packets, bp, 4)
+
+    rgba_sum = trace_shade(rays9, scene) if mesh is None else map_shards(trace_shade, rays9, mesh, scene)
     return unpack_tile(rgba_sum.reshape(K, nb, bp, 4), tile_shape, packet_shape)

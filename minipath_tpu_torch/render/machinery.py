@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from minipath_tpu_torch.camera import Camera
+from minipath_tpu_torch.parallel import replicate
 from minipath_tpu_torch.render import integrator
 from minipath_tpu_torch.scene import Scene
 from minipath_tpu_torch.scene.primitives import Sphere
@@ -147,14 +148,23 @@ def render(
     started_tile_callback=None,
     finished_tile_callback=None,
     *,
-    device="cuda",
+    device=None,
     seed: int = 0,
+    mesh=None,
 ) -> RenderProgress:
-    """Start rendering on ``device``; returns immediately with a
-    :class:`RenderProgress`. The scene's object is a ``TriangleBvh`` (traced
-    by K1, or K3 over the quantized layout) or the analytic ``Sphere``
-    (intersected in closed form, no kernel); anything else raises
+    """Start rendering on ``device`` (default ``cuda``); returns immediately
+    with a :class:`RenderProgress`. The scene's object is a ``TriangleBvh``
+    (traced by K1, or K3 over the quantized layout) or the analytic
+    ``Sphere`` (intersected in closed form, no kernel); anything else raises
     ``TypeError``.
+
+    ``mesh``: an optional sequence of devices
+    (``parallel.make_device_mesh``; it may repeat one). The render then runs
+    on ``mesh[0]`` (``device`` must be None or that device): each dispatch's
+    rays are made there as without a mesh, and each device traces and
+    shades a contiguous share of them over its own copy of the scene, so
+    the image is bit-identical to the single-device render's for the same
+    seed.
 
     Callbacks fire on the render thread: ``started_tile_callback(tile)`` and
     ``finished_tile_callback(tile, snapshot)`` with a
@@ -167,7 +177,12 @@ def render(
     obj = scene.object
     if not isinstance(obj, (TriangleBvh, Sphere)):
         raise TypeError(f"Unsupported scene object: {type(obj)!r}")
-    device = torch.device(device)
+    if mesh is not None:
+        mesh = tuple(torch.device(d) for d in mesh)
+        if device is not None and torch.device(device) not in (mesh[0], torch.device(mesh[0].type)):
+            raise ValueError(f"device {device} is not the mesh's first device {mesh[0]}")
+        device = mesh[0]
+    device = torch.device("cuda" if device is None else device)
     width, height = settings.resolution
     # Tiles are traced at a packet-multiple shape; edge tiles are cropped on
     # write-back.
@@ -191,17 +206,20 @@ def render(
     if isinstance(obj, TriangleBvh):
         stack_size = obj.recommended_stack_size
         kernel_scene = obj.kernel_scene(device)
+        if mesh is not None:
+            kernel_scene = replicate(kernel_scene, mesh)
 
         def tile_batch(origins, spp, strat_seed):
             return integrator.render_tile_batch_bvh(
-                kernel_scene, sampler, origins, generator, strat_seed, spp=spp, stack_size=stack_size, **shape
+                kernel_scene, sampler, origins, generator, strat_seed, spp=spp, stack_size=stack_size, mesh=mesh,
+                **shape,
             )
 
     else:
         # The analytic sphere: no scene layout and no kernel launch.
         def tile_batch(origins, spp, strat_seed):
             return integrator.render_tile_batch_sphere(
-                obj, sampler, origins, generator, strat_seed, spp=spp, **shape
+                obj, sampler, origins, generator, strat_seed, spp=spp, mesh=mesh, **shape
             )
 
     generator = torch.Generator(device=device)

@@ -17,10 +17,13 @@ light dimension is a pure function of (pixel, sample, seed) and nothing is
 drawn from the generator for them; only shadow-ray and path roulette stay
 iid.
 
+:func:`make_pt_renderer_sharded` runs the whole bounce loop per device of a
+mesh, each shard on its own range of pixel blocks.
+
 Not ported: the portable XLA tracers (the port's CPU path is the kernels'
 plain version behind the same :func:`make_pt_tracer` and
-:func:`make_full_tracer`), the multi-device renderer,
-and the TPU-measured shadow-sort alternatives (only ``"pos"`` is here).
+:func:`make_full_tracer`) and the TPU-measured shadow-sort alternatives
+(only ``"pos"`` is here).
 """
 
 from __future__ import annotations
@@ -31,7 +34,8 @@ import numpy as np
 import torch
 
 from minipath_tpu_torch.camera import CameraSampler
-from minipath_tpu_torch.render.frame import gen_frame_rays9, unpack_frame
+from minipath_tpu_torch.parallel import replicate, shard_generators, shard_ranges
+from minipath_tpu_torch.render.frame import gen_frame_rays9, gen_rays9_blocks, unpack_frame
 from minipath_tpu_torch.render.kernels import KernelHits, KernelScene, PTHits, PTScene, trace_packets_pt
 from minipath_tpu_torch.render.kernels_q import QPTScene, QuantizedScene, trace_packets_q, trace_scene
 from minipath_tpu_torch.render.stratify import render_seed, strat1d, strat2d
@@ -508,13 +512,23 @@ def _pt_trace(
     strat_spp: int | None = None,
     strat_offset: int = 0,
     strat_seed: int = 0,
+    block_start: int = 0,
+    live_rays: int | None = None,
     with_sumsq: bool = False,
     clamp: float | None = None,
 ):
     """The bounce loop over camera rays ``rays9`` ``(B0, 9, P0)`` (packets
-    of ``samples`` x pixel-block rays, sample-major). Returns ``(B0, bp,
-    3)`` per-pixel sums, and with ``with_sumsq`` also the per-pixel sum of
-    squared per-sample luminances ``(B0, bp)``.
+    of ``samples`` x pixel-block rays, sample-major; the whole frame or one
+    shard's range of it). Returns ``(B0, bp, 3)`` per-pixel sums, and with
+    ``with_sumsq`` also the per-pixel sum of squared per-sample luminances
+    ``(B0, bp)``.
+
+    ``block_start`` is the frame index of the first packet's pixel block: a
+    shard passes its range's start, so that the BSDF and light strata of a
+    pixel are the whole frame's. ``live_rays`` marks only the first that
+    many rays live: the rest are dead from bounce 0, add no radiance, and the
+    tracers' live-prefix exit skips their packets (the adaptive sampler's
+    rounds).
 
     With ``lights`` and ``shadow_tracer``, next-event estimation runs at
     diffuse and glossy vertices: one light sample and occlusion segment per
@@ -536,13 +550,17 @@ def _pt_trace(
         throughput=torch.ones((N, 3), dtype=torch.float32, device=dev),
         radiance=torch.zeros((N, 3), dtype=torch.float32, device=dev),
         pixel=torch.arange(N, dtype=torch.int32, device=dev),  # one path per slot
-        active=torch.ones((N,), dtype=torch.bool, device=dev),
+        active=(
+            torch.ones((N,), dtype=torch.bool, device=dev)
+            if live_rays is None
+            else torch.arange(N, device=dev) < live_rays
+        ),
         prev_pdf=torch.zeros((N,), dtype=torch.float32, device=dev) if nee else None,
     )
     zero3 = torch.zeros((N, 3), dtype=torch.float32, device=dev)
 
     for bounce in range(bounces):
-        live = None
+        live = live_rays
         if compaction and bounce > 0:
             state = _compact(state, fine_direction=bounce == 1)
             # Dead rays are now a suffix; the kernel reads the live count
@@ -573,7 +591,7 @@ def _pt_trace(
             bp0 = P0 // samples
             within = state.pixel % P0
             s_idx = strat_offset + within // bp0
-            pid_s = ((state.pixel // P0) * bp0 + within % bp0) ^ strat_seed
+            pid_s = ((state.pixel // P0 + block_start) * bp0 + within % bp0) ^ strat_seed
             strat_b = (s_idx, pid_s, strat_spp, 8 * bounce)
             strat_nee = (s_idx, pid_s, strat_spp, 8 * bounce + 4)
         new_dir, atten, emitted, terminate, bsdf_pdf, diffuse = scatter_full(
@@ -783,3 +801,90 @@ def render_frame_pt(
         var = torch.clamp(acc_sq - lum_sum * lum_sum / spp, min=0.0) / ((spp - 1) * spp)
         return img, unpack_frame(var[..., None], width, height, (hc, wc), px_block)[..., 0]
     return img
+
+
+def make_pt_renderer_sharded(
+    mesh,
+    tracer,
+    *,
+    width: int,
+    height: int,
+    px_block=(16, 16),
+    samples_per_packet: int = 8,
+    bounces: int = 6,
+    compaction: bool = True,
+    lights: LightTable | None = None,
+    shadow_tracer=None,
+    shadow_rr: bool = True,
+    nee_max_depth: int | None = None,
+    rr_start: int = 3,
+    rr_floor: float = 0.05,
+    min_live_frac: float | None = None,
+    stratify: bool = True,
+    sobol: bool = False,
+):
+    """The wavefront path tracer sharded over ``mesh``, a sequence of devices
+    (``parallel.make_device_mesh``; it may repeat one).
+
+    Each device owns a contiguous range of the frame's pixel blocks,
+    generates its camera rays and runs the whole bounce loop on them,
+    compaction included: rays never move between devices, and the only
+    traffic between them is the gather of the shards' sums onto ``mesh[0]``
+    at the end. The tracer state, materials, lights, sampler and environment
+    are replicated once per distinct device. ``tracer`` and
+    ``shadow_tracer`` come from :func:`make_pt_tracer` and
+    :func:`make_pt_shadow_tracer` and take the state of whichever device
+    they are handed. The arguments are :func:`render_frame_pt`'s.
+
+    Returns ``render(tracer_state, materials, sampler, generator, spp,
+    env=None, strat_seed=None) -> (H, W, 4)`` mean image on ``mesh[0]``.
+    Each shard draws from a generator of its own, seeded from ``generator``
+    (:func:`parallel.shard_generators`); the pairing seed is drawn once per
+    render (when ``strat_seed`` is None) and shared. A pixel's strata are
+    the whole frame's, so in Sobol mode, where roulette draws nothing, the
+    sharded frame traces the unsharded frame's paths.
+    """
+    if (lights is None) != (shadow_tracer is None):
+        raise ValueError("NEE needs both lights= and shadow_tracer=")
+    if sobol and not stratify:
+        raise ValueError("sobol=True requires stratify=True")
+    mesh = tuple(torch.device(d) for d in mesh)
+    bh, bw = px_block
+    hc, wc = -(-height // bh), -(-width // bw)
+    ranges = shard_ranges(hc * wc, len(mesh))
+    shard_lights = replicate(lights, mesh)
+
+    def render(tracer_state, materials, sampler, generator, spp: int, env=None, strat_seed=None):
+        if env is None:
+            env = Environment.sky(mesh[0])
+        if strat_seed is None:
+            strat_seed = render_seed(generator)
+        strat_seed = (int(strat_seed) + 2**31) % 2**32 - 2**31  # as int32
+        strat_spp = (-spp if sobol else spp) if stratify else None
+        states, tables, samplers, envs = (replicate(x, mesh) for x in (tracer_state, materials, sampler, env))
+        gens = shard_generators(generator, mesh)
+        acc = [None] * len(mesh)
+        done = 0
+        while done < spp:
+            n = min(samples_per_packet, spp - done)
+            for d, (lo, hi) in enumerate(ranges):
+                if lo == hi:
+                    continue
+                rays9 = gen_rays9_blocks(
+                    samplers[d], gens[d], lo, block_count=hi - lo, wc=wc, px_block=px_block, samples=n,
+                    strat_spp=strat_spp, strat_offset=done, strat_seed=strat_seed,
+                )
+                part = _pt_trace(
+                    states[d], tables[d], envs[d], rays9, gens[d], tracer=tracer, samples=n, bounces=bounces,
+                    compaction=compaction, lights=shard_lights[d], shadow_tracer=shadow_tracer,
+                    shadow_rr=shadow_rr, nee_max_depth=nee_max_depth, rr_start=rr_start, rr_floor=rr_floor,
+                    min_live_frac=min_live_frac, strat_spp=strat_spp, strat_offset=done,
+                    strat_seed=strat_seed, block_start=lo,
+                )
+                acc[d] = part if acc[d] is None else acc[d] + part
+            done += n
+        sums = torch.cat([a.to(mesh[0]) for a in acc if a is not None])
+        rgb = unpack_frame(sums, width, height, (hc, wc), px_block) / spp
+        return torch.cat([rgb, torch.ones_like(rgb[..., :1])], dim=-1)
+
+    return render

@@ -126,7 +126,47 @@ def test_cli_denoise_filters_the_saved_image(tmp_path):
 
 def test_help_names_no_unported_flag():
     text = cli.build_parser().format_help()
-    assert "--denoise" in text and "--aov" in text
-    assert "--devices" not in text and "--adaptive" not in text
-    assert "not ported" not in text.lower()
-    assert "--denoise" not in cli.__doc__.split("Not ported:")[1]
+    for flag in ("--denoise", "--aov", "--devices", "--adaptive"):
+        assert flag in text and flag in cli.__doc__, flag
+    assert "not ported" not in text.lower() and "not ported" not in cli.__doc__.lower()
+
+
+@pytest.mark.parametrize("integrator", ["normal", "pt"])
+def test_cli_devices_on_the_cpu_writes_png(tmp_path, integrator):
+    """``--devices 2 --device cpu``: a mesh of the one CPU device, twice."""
+    out, said = _run(tmp_path, "--integrator", integrator, "--spp", "2", "--devices", "2", "-q")
+    assert " on 2 x cpu in " in said
+    img = _png(out)
+    assert img.shape == (48, 64, 4) and (img[..., 3] > 0).any() and img[..., :3].std() > 0
+
+
+def test_cli_devices_beyond_the_cards_exits_2(monkeypatch, capsys):
+    """More devices than there are: exit 2 with a message, never fewer
+    devices. Without a card the device check exits first; with one card
+    (faked), the mesh's."""
+    import torch
+
+    assert cli.main(["--devices", "3", "--device", "cuda", "--no-stats"]) == 2
+    assert "no CUDA device is available" in capsys.readouterr().err
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert cli.main(["--devices", "3", "--device", "cuda", "--no-stats"]) == 2
+    assert "--devices 3: 3 CUDA devices asked for, 1 available" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags,warnings", [
+    (("--sobol", "--denoise"), ("--sobol with --adaptive is not supported; rendering with jittered strata",
+                                "--denoise with --adaptive uses the fixed-sigma filter (no variance buffer)")),
+    (("--devices", "2"), ("--adaptive is single-device only; rendering uniform spp across the mesh",)),
+], ids=["sobol_denoise", "mesh"])
+def test_cli_adaptive_writes_png_with_its_warnings(tmp_path, flags, warnings):
+    out, said = _run(tmp_path, "--adaptive", "--spp", "10", *flags)
+    for text in warnings:
+        assert text in said, text
+    img = _png(out)
+    assert img.shape == (48, 64, 4) and (img[..., 3] == 255).all() and img[..., :3].std() > 0
+
+
+def test_cli_adaptive_budget_too_small_exits_2(capsys):
+    assert cli.main(["--integrator", "pt", "--adaptive", "--spp", "8", "--device", "cpu", "--no-stats"]) == 2
+    assert "--adaptive needs --spp >= 10" in capsys.readouterr().err

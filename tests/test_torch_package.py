@@ -54,6 +54,7 @@ def test_port_import_leaves_jax_unloaded():
         "for m in pkgutil.walk_packages(minipath_tpu_torch.__path__, 'minipath_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "assert 'jax' not in sys.modules, sorted(k for k in sys.modules if 'jax' in k)\n"
+        "assert {'minipath_tpu_torch.parallel.mesh', 'minipath_tpu_torch.render.adaptive'} <= set(sys.modules)\n"
         "print('ok')\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

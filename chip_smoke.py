@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (``minipath_tpu_torch``) on one NVIDIA GPU.
 
-Run from the root of a checkout: ``python3 chip_smoke.py``. Eighteen phases,
+Run from the root of a checkout: ``python3 chip_smoke.py``. Twenty phases,
 each printing its lines as it finishes; any failure raises and the script
 exits non-zero. There is no CPU path: without a CUDA device it fails at once.
 
@@ -124,6 +124,29 @@ one card four times (with more cards, also the real devices):
     and ``--devices 0`` each write a PNG, and ``--devices`` beyond the cards
     present exits 2.
 
+Phase 19 runs after phase 18; phase 20 after phase 13:
+
+19. The two-level tracer (``render/twolevel.py``: a broad phase over the
+    BVH's top-level treelets, then K2 closest-hit with per-packet roots, most
+    of them leaves): phase 6's 4.18M-ray bounce-1 wavefront through it at
+    (levels, rounds) = (2, 1), (2, 2) and (3, 2) against the flat tracer
+    (tri on 99.99% of rays, t within 1e-5, no overflow, rounds + 1 launches,
+    no host sync in a warm trace under ``set_sync_debug_mode("error")``),
+    with both traces' times; then phase 7's NEE-capped 1080p frame through it
+    (channel means within 0.5% of phase 7's, launches, warm seconds), and a
+    960x540 @ 8 spp Sobol frame with no roulette against the flat tracer's
+    (99.9% of values equal).
+20. The path tracer's tools, each ``python -m minipath_tpu_torch.tools.<name>
+    --device cuda --out ...`` in a subprocess at its full size:
+    ``bench_pt`` (wavefront, megakernel, NEE, NEE at depth 1; the
+    megakernel's mean within 0.01 of the wavefront's), ``isolate_qpt`` (K3
+    against K2 on the same scene and rays), ``profile_pt_headline`` (the
+    headline frame's device time by phase of the bounce loop, the trace's
+    float32 rate) and ``convergence_pt`` with its top rung cut to 256 spp
+    (``estimators_agree``). Each must exit 0 and print the keys of its
+    JAX-era artifact (``BENCH_pt.json``, ``ISOLATE_QPT.json``,
+    ``PROFILE_PT.json``, ``CONVERGENCE.json``).
+
 ``python3 chip_smoke.py --kernels-only`` runs phases 1, 2, 3, 6 and 10 alone:
 the traversal kernels against their plain versions, with their times, bounds
 and requested bytes (about two minutes, most of it the three scene builds).
@@ -191,38 +214,6 @@ GUI_SIZE, GUI_ABORT_SPP, VIEWPORT_SIZE, VIEWPORT_PASSES = (2048, 1536), 64, (102
 # Phases 15 and 16: two renders of one scene whose jitter differs.
 STAT_RTOL = 5e-3
 
-# The card's published peaks (NVIDIA H100 SXM data sheet, 700 W): float32
-# outside the tensor cores, and HBM bandwidth.
-PEAK_FP32_OPS, PEAK_HBM_BYTES = 67e12, 3.35e12
-# Float32 operations of one traversal step, counted in the kernels' sources.
-# Slab test of one child box: 6 subtractions, 6 multiplies, 12 min/max, 1
-# compare. Two-sided Moller-Trumbore of one triangle lane: 2 cross products
-# (9 each), 3 dot products (5 each), a reciprocal, 3 subtractions, 3
-# multiplies by 1/det and 6 compares (with u + v). K3 first decompresses:
-# 6 multiplies and 6 adds per child box; 9 of each per lane's vertices and
-# 6 subtractions for its edges.
-SLAB_OPS, MT_OPS = 25, 48
-# K3 reads a box beside its u16 words: an inner node's own box from its
-# node_frame row (6 of the row's 8 words), a leaf's from words 58..63 of its
-# first packet's row.
-FRAME_BYTES = 6 * 4
-COST = {
-    # kernel: (ops per child box, ops per triangle lane, bytes per node row
-    #          visited, per triangle packet's vertices, per leaf's first
-    #          packet, per distinct triangle hit (its normals and material,
-    #          for the epilogue), and written per ray)
-    "traverse": (SLAB_OPS, MT_OPS, 48 * 4 + 8 * 4, 72 * 4, 0, 9 * 4 + 4, 4 + 4 + 12 + 4),
-    "traverse_pt": (SLAB_OPS, MT_OPS, 48 * 4 + 8 * 4, 72 * 4, 0, 0, 4 * 4),
-    "traverse_q": (SLAB_OPS + 12, MT_OPS + 24, 32 * 4 + FRAME_BYTES, 36 * 4, FRAME_BYTES, 9 + 2, 4 + 4 + 12 + 4),
-    "traverse_q_lean": (SLAB_OPS + 12, MT_OPS + 24, 32 * 4 + FRAME_BYTES, 36 * 4, FRAME_BYTES, 0, 4 * 4),
-}
-# Bytes a thread's loads request at one inner visit and at one test of a
-# triangle packet, whatever cache serves them: K1 and K2 a 192 B box row and
-# a 32 B link row, then the packet's 72 vertex words; K3 a 128 B node row and
-# a 32 B frame row, then the 9 int4 that hold a packet's u16 vertices (the
-# two int4 of a leaf's frame, once a leaf visit, are left out: no counter
-# counts leaf visits).
-REQUESTED = {"traverse": (224, 288), "traverse_pt": (224, 288), "traverse_q": (160, 144), "traverse_q_lean": (160, 144)}
 
 
 def log(phase: str, msg: str) -> None:
@@ -262,12 +253,13 @@ def traversal_bound(kernel, rows, r9, hits, **kw):
     arguments ``kw``."""
     from minipath_tpu_torch.render import kernels
     from minipath_tpu_torch.scene.bvh import links as L
+    from minipath_tpu_torch.utils.roofline import COST, PEAK_FP32_OPS, PEAK_HBM_BYTES, traversal_ops
 
-    slab, mt, node_b, packet_b, first_b, hit_b, out_b = COST[kernel]
+    node_b, packet_b, first_b, hit_b, out_b = COST[kernel][2:]
     touched = {}
     kernels._traverse_reference(rows, r9, touched=touched, **kw)
     B, _, P = r9.shape
-    ops = int(hits.inner_visits.sum()) * 8 * slab + int(hits.leaf_tests.sum()) * 8 * mt
+    ops = traversal_ops(kernel, hits.inner_visits.sum(), hits.leaf_tests.sum())
     n_nodes, n_packets = int(touched["nodes"].sum()), int(touched["packets"].sum())
     n_hit = int(torch.unique(hits.tri[hits.tri >= 0]).numel())
     # The touched packets that are the first of their leaf.
@@ -289,7 +281,10 @@ def traversal_bound(kernel, rows, r9, hits, **kw):
 
 def requested(kernel, hits, ms) -> str:
     """The bytes the launch's threads asked the caches for, from its own
-    counters (:data:`REQUESTED`), and the rate that makes over ``ms``."""
+    counters (``utils/roofline.py::REQUESTED``), and the rate that makes
+    over ``ms``."""
+    from minipath_tpu_torch.utils.roofline import REQUESTED
+
     node_b, packet_b = REQUESTED[kernel]
     nbytes = int(hits.inner_visits.sum()) * node_b + int(hits.leaf_tests.sum()) * packet_b
     return f"requested {nbytes / 1e6:.1f} MB = {nbytes / ms / 1e9:.3f} TB/s"
@@ -1674,6 +1669,197 @@ def phase_adaptive(parts, pt_mean, device, smi):
     return launches
 
 
+# Phase 19: the two-level tracer. (levels, rounds) of the wavefront's traces;
+# the full-width frame's. Exact ties between triangles in two treelets may
+# resolve apart, so hits are held by share; the Sobol frame by its values.
+TWOLEVEL_CONFIGS, TWOLEVEL_FRAME = ((2, 1), (2, 2), (3, 2)), (2, 2)
+TWOLEVEL_SOBOL, TWOLEVEL_VALUE_SHARE = (960, 540, 8), 0.999
+
+
+TWOLEVEL_PARTS = ("twolevel.broad_phase", "twolevel.plan", "twolevel.trace", "twolevel.merge", "twolevel.shade")
+
+
+def profiled_split(fn, names, n_top=4):
+    """One ``torch.profiler`` run of ``fn()``: the device milliseconds of the
+    kernels launched inside each annotated range named in ``names``, summed
+    by name, and the ``n_top`` kernels with the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from minipath_tpu_torch.utils.profiling import annotated_ms
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    split = dict.fromkeys(names, 0.0)
+    for name, ms in annotated_ms(events, names, device=True):
+        split[name] += ms
+    by_kernel = {}
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in names:
+            by_kernel[e.name[:60]] = by_kernel.get(e.name[:60], 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:n_top]
+    return {k.split(".")[-1]: round(v, 3) for k, v in split.items()}, [(k, round(v, 3)) for k, v in top]
+
+
+def phase_twolevel(pt_bvh, parts, ref64, pt_warm, device, smi):
+    """Phase 19: ``make_pt_tracer_twolevel`` (K2 with per-packet roots) on
+    phase 6's bounce-1 wavefront against the flat tracer, then in place of
+    the flat tracer in phase 7's frame. Returns the frame's launches."""
+    import warnings
+
+    from minipath_tpu_torch.render import kernels
+    from minipath_tpu_torch.render.twolevel import build_treelets, make_pt_tracer_twolevel
+    from minipath_tpu_torch.render.wavefront import render_frame_pt
+    from minipath_tpu_torch.scene.bvh import links as L
+
+    t_phase = time.perf_counter()
+    scene, table, lights, flat_tracer, shadow = parts
+    ss = pt_bvh.recommended_stack_size
+    r9, _, live_rays = bounce1_wavefront(parts, device, torch.Generator(device=device).manual_seed(1))
+    rays = r9.transpose(1, 2).reshape(-1, 9)
+    o, d, inv = rays[:, 0:3], rays[:, 3:6], rays[:, 6:9]
+    live = torch.full((1,), live_rays, dtype=torch.int32, device=device)
+    ref = flat_tracer(scene, o, d, inv, live)
+    flat_ms = cuda_ms(lambda: flat_tracer(scene, o, d, inv, live), 5)
+    tracers = {}
+    for levels, rounds in TWOLEVEL_CONFIGS:
+        tl = build_treelets(pt_bvh.host_arrays, levels, device=device)
+        n_leaves = int(((tl.links & L.COUNT_MASK) != 0).sum())
+        two, _ = make_pt_tracer_twolevel(scene, tl, stack_size=ss, packet_size=PT_PACKET, rounds=rounds)
+        tracers[levels, rounds] = two
+        two(scene, o, d, inv, live)
+        torch.cuda.synchronize()
+        before = kernels.trace_packets_pt.launches["closest"]
+        torch.cuda.set_sync_debug_mode("error")  # any host sync in the trace raises
+        try:
+            got = two(scene, o, d, inv, live)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        launches = kernels.trace_packets_pt.launches["closest"] - before
+        ms = cuda_ms(lambda: two(scene, o, d, inv, live), 3)
+        split, top = profiled_split(lambda: two(scene, o, d, inv, live), TWOLEVEL_PARTS)
+        same = (got.tri == ref.tri)[:live_rays]
+        match = same.float().mean().item()
+        hit = same & (ref.tri[:live_rays] >= 0)
+        t_rel = ((got.t[:live_rays] - ref.t[:live_rays]).abs() / ref.t[:live_rays].abs().clamp_min(1e-30))[hit]
+        t_rel = t_rel.max().item()
+        ovf = int(got.overflow)
+        text = (f"levels {levels}, rounds {rounds}: {len(tl.links)} treelets, {n_leaves} of them leaves | "
+                f"{live_rays} live rays of {rays.shape[0]}: tri match {match:.6f}, max t rel err {t_rel:.3g}, overflow "
+                f"{ovf} | trace {ms:.3f} ms against the flat trace's {flat_ms:.3f} ms ({ms / flat_ms:.2f}x) on {smi} | "
+                f"K2 closest-hit launches per trace {launches}, host syncs in a warm trace 0 | inner visits/ray "
+                f"{int(got.inner_visits) / live_rays:.2f} (flat {int(ref.inner_visits.sum()) / live_rays:.2f}), leaf "
+                f"tests/ray {int(got.leaf_tests) / live_rays:.2f} (flat {int(ref.leaf_tests.sum()) / live_rays:.2f}) | "
+                f"profiled device ms by part {split} | top kernels {top}")
+        if match < TRI_MATCH or t_rel > T_RTOL or ovf != 0 or launches != rounds + 1:
+            raise AssertionError(f"the two-level trace disagrees with the flat one: {text}")
+        log("19 two-level", text)
+
+    # (b) Phase 7's frame with the two-level tracer in place of the flat one.
+    two = tracers[TWOLEVEL_FRAME]
+    two_parts = (scene, table, lights, two, shadow)
+    _, cold = render_pt(two_parts, device, PT_WIDTH, PT_HEIGHT, PT_SPP, 1, 2, seed=90)
+    reset_launches()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            img, warm = render_pt(two_parts, device, PT_WIDTH, PT_HEIGHT, PT_SPP, 1, 2, seed=91)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    launches = {k: v for k, v in kernel_launch_counts().items() if v}
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    ref_means, means = ref64[..., :3].mean(axis=(0, 1)), img[..., :3].mean(axis=(0, 1))
+    rel = np.abs(means - ref_means) / ref_means
+    text = (f"render_frame_pt {PT_WIDTH}x{PT_HEIGHT} @ {PT_SPP} spp, {PT_BOUNCES} bounces, NEE at depth 1, through the "
+            f"two-level tracer (levels {TWOLEVEL_FRAME[0]}, rounds {TWOLEVEL_FRAME[1]}) on {smi}: warm {warm:.3f} s "
+            f"(cold {cold:.3f} s) against phase 7's {pt_warm:.3f} s ({warm / pt_warm:.2f}x) | launches {launches} | "
+            f"host syncs {syncs} | channel means {np.round(means, 5).tolist()} against phase 7's "
+            f"{np.round(ref_means, 5).tolist()} (largest rel {rel.max():.3e})")
+    if (not np.isfinite(img).all() or rel.max() > SHARD_MEAN_RTOL
+            or launches.get("K2 closest") != PT_SPP // 2 * PT_BOUNCES * (TWOLEVEL_FRAME[1] + 1)):
+        raise AssertionError(f"the two-level frame disagrees with phase 7's: {text}")
+    log("19 two-level", text)
+
+    w, h, spp = TWOLEVEL_SOBOL
+    sampler, env = frame_inputs(device, w, h)
+    kw = dict(width=w, height=h, spp=spp, bounces=PT_BOUNCES, env=env, samples_per_packet=spp, lights=lights,
+              shadow_tracer=shadow, nee_max_depth=1, sobol=True, shadow_rr=False, rr_start=PT_BOUNCES,
+              strat_seed=20241017)
+    a = render_frame_pt(two, scene, table, sampler, None, **kw)
+    b = render_frame_pt(flat_tracer, scene, table, sampler, None, **kw)
+    equal = (a == b).float().mean().item()
+    text = (f"Sobol {w}x{h} @ {spp} spp, no roulette, two-level against flat: values equal {equal:.6f}, max abs "
+            f"diff {(a - b).abs().max().item():.3g}, means {a[..., :3].mean().item():.6f} / "
+            f"{b[..., :3].mean().item():.6f}")
+    if equal < TWOLEVEL_VALUE_SHARE:
+        raise AssertionError(f"the two-level Sobol frame differs from the flat one: {text}")
+    log("19 two-level", text)
+    log("19 two-level", f"phase time {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# Phase 20: the path tracer's tools, each in a subprocess at its full size
+# (convergence_pt with its top rung cut to 256 spp), and the JAX-era artifact
+# whose keys each keeps. The megakernel's frame mean may differ from the
+# wavefront's by Monte Carlo noise alone: 960x540 @ 8 spp is 4.1M paths, a
+# standard error of the mean near 1e-3 per channel on the atrium.
+TOOL_RUNS = (
+    ("bench_pt", "BENCH_pt.json", []),
+    ("isolate_qpt", "ISOLATE_QPT.json", []),
+    ("profile_pt_headline", "PROFILE_PT.json", []),
+    ("convergence_pt", "CONVERGENCE.json", ["480", "270", "256"]),
+)
+BENCH_PT_DELTA, TOOL_TIMEOUT_S = 0.01, 600
+
+
+def phase_tools(smi):
+    """Phase 20: ``python -m minipath_tpu_torch.tools.<name> --device cuda
+    --out ...`` for each tool: exit 0, the artifact's keys, the megakernel
+    in agreement with the wavefront."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, artifact, size in TOOL_RUNS:
+            out = Path(tmp) / f"{name}.json"
+            cmd = [sys.executable, "-m", f"minipath_tpu_torch.tools.{name}", "--device", "cuda", "--out", str(out),
+                   *size]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=TOOL_TIMEOUT_S)
+            seconds = time.perf_counter() - t0
+            if proc.returncode != 0 or not out.exists():
+                raise AssertionError(f"{name} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+            got = json.loads(proc.stdout.splitlines()[-1])
+            missing = set(json.loads((REPO / artifact).read_text())) - set(got)
+            if missing or json.loads(out.read_text()) != got:
+                raise AssertionError(f"{name}: keys of {artifact} missing {sorted(missing)}, or --out differs")
+            if name == "bench_pt":
+                head = {k: got[k] for k in ("value", "wavefront_mean_s", "megakernel_mean_s", "wavefront_vs_megakernel",
+                                            "estimator_mean_delta", "nee_mean_s", "nee_capped_mean_s")}
+                bad = got["estimator_mean_delta"] > BENCH_PT_DELTA
+            elif name == "convergence_pt":
+                head = {k: got[k] for k in ("rungs", "wavefront_top_s", "megakernel_top_s", "noise_floor_rmse",
+                                            "megakernel_rmse_vs_wavefront", "estimators_agree",
+                                            "stratification_gain")}
+                bad = not got["estimators_agree"]
+            elif name == "isolate_qpt":
+                head = {k: v for k, v in got.items() if k not in ("workload", "device", "device_health")}
+                bad = False
+            else:
+                head = {k: got[k] for k in ("frame_s", "fused_chunk_s", "chunk_boundary_s", "phase_ms",
+                                            "unattributed_device_ms", "profiled_chunk_device_ms", "k2_closest_ms",
+                                            "per_bounce", "trace_counters", "trace_achieved_gops",
+                                            "trace_vpu_utilization", "trace_fp32_peak_share")}
+                bad = not got["phase_ms"]["trace"] > 0
+            text = f"{name} on {smi}: exit 0 in {seconds:.1f} s, keys of {artifact} present | {json.dumps(head)}"
+            if bad:
+                raise AssertionError(f"{name} fails its gate: {text}")
+            log("20 tools", text)
+            log("20 tools", f"{name} device_health {json.dumps(got.get('device_health'))}")
+    log("20 tools", f"phase time {time.perf_counter() - t_phase:.1f} s")
+
+
 # Phase 13: the chain kernels' checks and shapes. K4 at the device-health
 # probe's shape; K5 at the bf16 tool's default and at a card-filling shape.
 CHAIN_CHECK_ITERS = (1, 7, 64, 65536)
@@ -1707,6 +1893,8 @@ def chain_bound(shape, iters, dtype, clock_hz):
     "bytes", text)``: its multiplies and min/max at the card's documented
     rates for them at the maximum SM clock, against its input read once and
     its output written once over the HBM rate."""
+    from minipath_tpu_torch.utils.roofline import PEAK_HBM_BYTES
+
     n = shape[0] * shape[1]
     mul_rate, minmax_rate = CHAIN_RATES[dtype]
     clocks = n * iters * (CHAIN_MULS / mul_rate + CHAIN_MINMAX / minmax_rate) / SMS
@@ -1956,9 +2144,11 @@ def main() -> int:
         profile_pt_frame(pt_parts(pt_bvh, dicts, device, quantized=True), device, args.profile, name="pt_q")
     by_path = phase_sharded(bvh, big, parts, ref64, pt_warm, device, smi)
     by_path["adaptive pt"] = phase_adaptive(parts, pt_mean, device, smi)
+    by_path["two-level pt"] = phase_twolevel(pt_bvh, parts, ref64, pt_warm, device, smi)
     del big, pt_bvh, parts, bvh, ref64
     k4, k4_launches, k5, k5_launches, _ = phase_chain(device, smi)
     phase_bench(smi)
+    phase_tools(smi)
 
     def entry(name, source, replaces, launches, results, key, **extra):
         r = results[key]

@@ -35,3 +35,14 @@ def make_rays(origin: torch.Tensor, direction: torch.Tensor) -> Rays:
         direction == 0.0, torch.full_like(direction, torch.inf), 1.0 / direction
     )
     return Rays(origin=origin, direction=direction, inv_direction=inv)
+
+
+def point_at(rays: Rays, t) -> torch.Tensor:
+    """Point along the ray at parameter ``t`` (shape ``(...,)``)."""
+    t = torch.as_tensor(t, dtype=rays.origin.dtype, device=rays.origin.device)
+    return rays.origin + rays.direction * t[..., None]
+
+
+def advance_by(rays: Rays, distance) -> Rays:
+    """New rays moved ``distance`` along their direction (same direction)."""
+    return Rays(origin=point_at(rays, distance), direction=rays.direction, inv_direction=rays.inv_direction)

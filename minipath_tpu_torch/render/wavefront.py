@@ -51,6 +51,7 @@ from minipath_tpu_torch.scene.materials import (
     material_rows,
     sample_lights,
 )
+from minipath_tpu_torch.utils.profiling import annotate
 
 _EPS = 1e-3  # self-intersection offset along the facing normal
 _PI = np.pi
@@ -562,129 +563,140 @@ def _pt_trace(
     for bounce in range(bounces):
         live = live_rays
         if compaction and bounce > 0:
-            state = _compact(state, fine_direction=bounce == 1)
-            # Dead rays are now a suffix; the kernel reads the live count
-            # from device memory and skips whole dead packets.
-            live = state.active.sum(dtype=torch.int32)
-            if min_live_frac is not None:
-                # Wavefront tail cut (opt-in, biased): once the live share
-                # drops below the threshold, retire the whole wavefront.
-                cut = live < int(min_live_frac * N)
-                state = state._replace(active=state.active & ~cut)
-                live = torch.where(cut, torch.zeros_like(live), live)
-        kh = tracer(tracer_state, state.origin, state.direction, state.inv_direction, live)
-        found = kh.tri >= 0
-        hit = found & state.active
-        missed = ~found & state.active
+            with annotate("pt.compaction"):
+                state = _compact(state, fine_direction=bounce == 1)
+                # Dead rays are now a suffix; the kernel reads the live count
+                # from device memory and skips whole dead packets.
+                live = state.active.sum(dtype=torch.int32)
+                if min_live_frac is not None:
+                    # Wavefront tail cut (opt-in, biased): once the live share
+                    # drops below the threshold, retire the whole wavefront.
+                    cut = live < int(min_live_frac * N)
+                    state = state._replace(active=state.active & ~cut)
+                    live = torch.where(cut, torch.zeros_like(live), live)
+        with annotate("pt.trace"):
+            kh = tracer(tracer_state, state.origin, state.direction, state.inv_direction, live)
+        with annotate("pt.environment_emission"):
+            found = kh.tri >= 0
+            hit = found & state.active
+            missed = ~found & state.active
 
-        # Environment on a miss (ends the path); it is not light-sampled, so
-        # it takes no MIS weight.
-        radiance = state.radiance + torch.where(
-            missed[:, None], state.throughput * env.radiance(state.direction), zero3
-        )
+            # Environment on a miss (ends the path); it is not light-sampled,
+            # so it takes no MIS weight.
+            radiance = state.radiance + torch.where(
+                missed[:, None], state.throughput * env.radiance(state.direction), zero3
+            )
 
-        # BSDF sampling at hits. With strata, each lane's sample index and
-        # pixel id come from `state.pixel` (the slot in packet layout, which
-        # compaction carries), with per-bounce, per-dimension salts.
-        strat_b = strat_nee = None
-        if strat_spp is not None:
-            bp0 = P0 // samples
-            within = state.pixel % P0
-            s_idx = strat_offset + within // bp0
-            pid_s = ((state.pixel // P0 + block_start) * bp0 + within % bp0) ^ strat_seed
-            strat_b = (s_idx, pid_s, strat_spp, 8 * bounce)
-            strat_nee = (s_idx, pid_s, strat_spp, 8 * bounce + 4)
-        new_dir, atten, emitted, terminate, bsdf_pdf, diffuse = scatter_full(
-            materials, generator, state.direction, kh.normal, kh.material, strat=strat_b
-        )
-        if nee:
-            # MIS: weight the emitter hit by how likely BSDF sampling was to
-            # find it, against NEE from the previous vertex.
-            pdf_l = hit_light_pdf(lights, kh.tri, state.direction, kh.t)
-            pp = state.prev_pdf
-            w_b = torch.where(pp > 0.0, pp * pp / (pp * pp + pdf_l * pdf_l), torch.ones_like(pp))
-            emitted = emitted * w_b[:, None]
-        radiance = radiance + torch.where(hit[:, None], state.throughput * emitted, zero3)
-        throughput = torch.where(hit[:, None], state.throughput * atten, state.throughput)
+        with annotate("pt.bsdf_scatter"):
+            # BSDF sampling at hits. With strata, each lane's sample index and
+            # pixel id come from `state.pixel` (the slot in packet layout,
+            # which compaction carries), with per-bounce, per-dimension salts.
+            strat_b = strat_nee = None
+            if strat_spp is not None:
+                bp0 = P0 // samples
+                within = state.pixel % P0
+                s_idx = strat_offset + within // bp0
+                pid_s = ((state.pixel // P0 + block_start) * bp0 + within % bp0) ^ strat_seed
+                strat_b = (s_idx, pid_s, strat_spp, 8 * bounce)
+                strat_nee = (s_idx, pid_s, strat_spp, 8 * bounce + 4)
+            new_dir, atten, emitted, terminate, bsdf_pdf, diffuse = scatter_full(
+                materials, generator, state.direction, kh.normal, kh.material, strat=strat_b
+            )
+        with annotate("pt.environment_emission"):
+            if nee:
+                # MIS: weight the emitter hit by how likely BSDF sampling was
+                # to find it, against NEE from the previous vertex.
+                pdf_l = hit_light_pdf(lights, kh.tri, state.direction, kh.t)
+                pp = state.prev_pdf
+                w_b = torch.where(pp > 0.0, pp * pp / (pp * pp + pdf_l * pdf_l), torch.ones_like(pp))
+                emitted = emitted * w_b[:, None]
+            radiance = radiance + torch.where(hit[:, None], state.throughput * emitted, zero3)
+            throughput = torch.where(hit[:, None], state.throughput * atten, state.throughput)
 
-        point = state.origin + state.direction * kh.t[:, None]
-        d_dot_n = torch.sum(state.direction * kh.normal, dim=-1, keepdim=True)
-        nf = torch.where(d_dot_n < 0, kh.normal, -kh.normal)
+            point = state.origin + state.direction * kh.t[:, None]
+            d_dot_n = torch.sum(state.direction * kh.normal, dim=-1, keepdim=True)
+            nf = torch.where(d_dot_n < 0, kh.normal, -kh.normal)
 
         nee_here = nee and (nee_max_depth is None or bounce < nee_max_depth)
         if nee_here:
-            # One light sample and one occlusion segment at every diffuse
-            # and glossy vertex; mirror and glass lanes are delta lobes NEE
-            # cannot cover, and keep full BSDF weight instead.
-            kindv, fuzzv, albedo, _ = material_rows(materials, kh.material)
-            glossy = (kindv == METAL) & (fuzzv >= GLOSSY_MIN_FUZZ)
-            cand = (diffuse | glossy) & hit
-            sh_o = point + nf * _EPS
-            y, wi, pdf_nee, em_l, cos_y, _ = sample_lights(lights, generator, sh_o, strat=strat_nee)
-            cos_x = torch.sum(wi * nf, dim=-1)
-            cand = cand & (cos_x > 0.0) & (cos_y > 1e-6) & (pdf_nee > 0.0)
-            if shadow_rr:
-                # Shadow-ray Russian roulette: drop low-throughput candidates
-                # before the trace and reweight survivors by 1/q (unbiased).
-                q_rr = torch.clamp(throughput.amax(dim=-1), 0.05, 1.0)
-                u_rr = torch.rand(q_rr.shape, generator=generator, device=dev)
-                cand = cand & (u_rr < q_rr)
-                rr_w = 1.0 / q_rr
-            else:
-                rr_w = torch.ones_like(cos_x)
-            # Pull the light-side end back by an ABSOLUTE epsilon (matching
-            # the surface-side offset), so the blind zone near a light does
-            # not grow with its distance.
-            seg = y - wi * _EPS - sh_o
-            o_s, s_s, n_cand, order = _shadow_batch(cand, sh_o, seg, wi)
-            occ_s = shadow_tracer(tracer_state, o_s, s_s, n_cand)
-            occluded = torch.empty_like(occ_s)
-            occluded[order] = occ_s
-            # BSDF value x cos and BSDF pdf toward the light, per lobe:
-            # Lambertian albedo/pi * cos_x (pdf cos_x/pi); glossy
-            # albedo * phong_pdf (the lobe's implied BRDF), pdf phong_pdf.
-            refl_v = _normalize(_reflect(state.direction, nf))
-            lobe_pdf_l = phong_pdf(phong_exponent(fuzzv), torch.sum(wi * refl_v, dim=-1))
-            pdf_b_l = torch.where(glossy, lobe_pdf_l, cos_x / _PI)
-            fcos = torch.where(glossy[:, None], albedo * lobe_pdf_l[:, None], albedo / _PI * cos_x[:, None])
-            w_nee = pdf_nee * pdf_nee / (pdf_nee * pdf_nee + pdf_b_l * pdf_b_l)
-            contrib = state.throughput * fcos * em_l * (w_nee / pdf_nee * rr_w)[:, None]
-            radiance = radiance + torch.where((cand & ~occluded)[:, None], contrib, zero3)
+            with annotate("pt.nee_light_sample"):
+                # One light sample and one occlusion segment at every diffuse
+                # and glossy vertex; mirror and glass lanes are delta lobes
+                # NEE cannot cover, and keep full BSDF weight instead.
+                kindv, fuzzv, albedo, _ = material_rows(materials, kh.material)
+                glossy = (kindv == METAL) & (fuzzv >= GLOSSY_MIN_FUZZ)
+                cand = (diffuse | glossy) & hit
+                sh_o = point + nf * _EPS
+                y, wi, pdf_nee, em_l, cos_y, _ = sample_lights(lights, generator, sh_o, strat=strat_nee)
+                cos_x = torch.sum(wi * nf, dim=-1)
+                cand = cand & (cos_x > 0.0) & (cos_y > 1e-6) & (pdf_nee > 0.0)
+                if shadow_rr:
+                    # Shadow-ray Russian roulette: drop low-throughput
+                    # candidates before the trace and reweight survivors by
+                    # 1/q (unbiased).
+                    q_rr = torch.clamp(throughput.amax(dim=-1), 0.05, 1.0)
+                    u_rr = torch.rand(q_rr.shape, generator=generator, device=dev)
+                    cand = cand & (u_rr < q_rr)
+                    rr_w = 1.0 / q_rr
+                else:
+                    rr_w = torch.ones_like(cos_x)
+                # Pull the light-side end back by an ABSOLUTE epsilon
+                # (matching the surface-side offset), so the blind zone near
+                # a light does not grow with its distance.
+                seg = y - wi * _EPS - sh_o
+            with annotate("pt.shadow_trace"):
+                o_s, s_s, n_cand, order = _shadow_batch(cand, sh_o, seg, wi)
+                occ_s = shadow_tracer(tracer_state, o_s, s_s, n_cand)
+                occluded = torch.empty_like(occ_s)
+                occluded[order] = occ_s
+            with annotate("pt.nee_light_sample"):
+                # BSDF value x cos and BSDF pdf toward the light, per lobe:
+                # Lambertian albedo/pi * cos_x (pdf cos_x/pi); glossy
+                # albedo * phong_pdf (the lobe's implied BRDF), pdf phong_pdf.
+                refl_v = _normalize(_reflect(state.direction, nf))
+                lobe_pdf_l = phong_pdf(phong_exponent(fuzzv), torch.sum(wi * refl_v, dim=-1))
+                pdf_b_l = torch.where(glossy, lobe_pdf_l, cos_x / _PI)
+                fcos = torch.where(glossy[:, None], albedo * lobe_pdf_l[:, None], albedo / _PI * cos_x[:, None])
+                w_nee = pdf_nee * pdf_nee / (pdf_nee * pdf_nee + pdf_b_l * pdf_b_l)
+                contrib = state.throughput * fcos * em_l * (w_nee / pdf_nee * rr_w)[:, None]
+                radiance = radiance + torch.where((cand & ~occluded)[:, None], contrib, zero3)
 
-        # Dielectric transmission crosses the surface: offset along the new
-        # direction's side of the surface instead of the facing normal.
-        offset_dir = torch.where(torch.sum(new_dir * nf, dim=-1, keepdim=True) >= 0, nf, -nf)
-        new_origin = point + offset_dir * _EPS
-        inv = torch.where(new_dir == 0.0, torch.full_like(new_dir, torch.inf), 1.0 / new_dir)
+        with annotate("pt.roulette_update"):
+            # Dielectric transmission crosses the surface: offset along the
+            # new direction's side of the surface instead of the facing
+            # normal.
+            offset_dir = torch.where(torch.sum(new_dir * nf, dim=-1, keepdim=True) >= 0, nf, -nf)
+            new_origin = point + offset_dir * _EPS
+            inv = torch.where(new_dir == 0.0, torch.full_like(new_dir, torch.inf), 1.0 / new_dir)
 
-        active = hit & ~terminate
-        # Russian roulette from `rr_start` on: survival probability is the
-        # largest throughput channel (floored), survivors reweighted.
-        if bounce >= rr_start:
-            p_continue = torch.clamp(throughput.amax(dim=-1), rr_floor, 1.0)
-            survived = torch.rand(active.shape, generator=generator, device=dev) < p_continue
-            throughput = torch.where(
-                (active & survived)[:, None], throughput / p_continue[:, None], throughput
+            active = hit & ~terminate
+            # Russian roulette from `rr_start` on: survival probability is
+            # the largest throughput channel (floored), survivors reweighted.
+            if bounce >= rr_start:
+                p_continue = torch.clamp(throughput.amax(dim=-1), rr_floor, 1.0)
+                survived = torch.rand(active.shape, generator=generator, device=dev) < p_continue
+                throughput = torch.where(
+                    (active & survived)[:, None], throughput / p_continue[:, None], throughput
+                )
+                active = active & survived
+
+            state = _PathState(
+                origin=torch.where(hit[:, None], new_origin, state.origin),
+                direction=torch.where(hit[:, None], new_dir, state.direction),
+                inv_direction=torch.where(hit[:, None], inv, state.inv_direction),
+                throughput=throughput,
+                radiance=radiance,
+                pixel=state.pixel,
+                active=active,
+                # Diffuse and glossy vertices carry their lobe pdf into the
+                # next vertex's MIS; vertices past nee_max_depth carry 0
+                # (their direct light was not light-sampled).
+                prev_pdf=(
+                    torch.where(hit, bsdf_pdf, torch.zeros_like(bsdf_pdf))
+                    if nee_here
+                    else (torch.zeros_like(bsdf_pdf) if nee else None)
+                ),
             )
-            active = active & survived
-
-        state = _PathState(
-            origin=torch.where(hit[:, None], new_origin, state.origin),
-            direction=torch.where(hit[:, None], new_dir, state.direction),
-            inv_direction=torch.where(hit[:, None], inv, state.inv_direction),
-            throughput=throughput,
-            radiance=radiance,
-            pixel=state.pixel,
-            active=active,
-            # Diffuse and glossy vertices carry their lobe pdf into the next
-            # vertex's MIS; vertices past nee_max_depth carry 0 (their
-            # direct light was not light-sampled).
-            prev_pdf=(
-                torch.where(hit, bsdf_pdf, torch.zeros_like(bsdf_pdf))
-                if nee_here
-                else (torch.zeros_like(bsdf_pdf) if nee else None)
-            ),
-        )
 
     # `pixel` is a permutation of the slots, so the sum is exact.
     rad = torch.zeros((N, 3), dtype=torch.float32, device=dev).index_add_(0, state.pixel.long(), state.radiance)

@@ -121,6 +121,87 @@ def test_roots_match_plain_version(cuda, atrium):
     assert torch.all(got.tri[7] == -1) and (got.tri[:7] >= 0).any()
 
 
+def _leaf_roots(bvh, tri):
+    """For each packet of ``tri`` (the first hits of a ray set), the leaf
+    link whose triangle packets hold that packet's most frequent hit."""
+    links = bvh.host_arrays.node_child_links.reshape(-1)
+    leaves = links[(links != L.NULL_LINK) & ((links & L.COUNT_MASK) != 0)]
+    first, count = leaves >> L.COUNT_BITS, leaves & L.COUNT_MASK
+    out = []
+    for row in tri:
+        pk = torch.bincount(row[row >= 0] >> 3).argmax().item()
+        out.append(int(leaves[(first <= pk) & (pk < first + count)][0]))
+    return out
+
+
+@pytest.mark.parametrize("mode", ["closest", "anyhit", "live_packets"])
+def test_leaf_roots_match_plain_version(cuda, atrium, mode):
+    """Leaf links as per-packet roots, as the two-level tracer makes them,
+    beside inner links and a NULL root: K2 enters a leaf root straight into
+    its triangle tests."""
+    bvh, _ = atrium
+    scene = bvh.pt_scene(cuda)
+    r9 = _bounce_rays(atrium, cuda, B=8, seed=5)
+    ss = bvh.recommended_stack_size
+    leaf = _leaf_roots(bvh, kernels.trace_packets_pt(scene, r9, stack_size=ss).tri.cpu())
+    links = bvh.host_arrays.node_child_links[int(bvh.host_arrays.root) >> L.COUNT_BITS]
+    inner = [int(c) for c in links if c != L.NULL_LINK and (c & L.COUNT_MASK) == 0]
+    roots = torch.tensor([leaf[0], leaf[1], inner[0], leaf[3], L.NULL_LINK, leaf[5], leaf[6], inner[-1]],
+                         dtype=torch.int32, device=cuda)
+    kw = {"anyhit": mode == "anyhit"}
+    if mode == "live_packets":
+        kw["live_packets"] = torch.tensor([6], dtype=torch.int32, device=cuda)
+    got = kernels.trace_packets_pt(scene, r9, stack_size=ss, roots=roots, **kw)
+    _assert_same(got, kernels.trace_packets_pt_reference(scene, r9, stack_size=ss, roots=roots, **kw))
+    is_leaf = torch.tensor([1, 1, 0, 1, 0, 1, 1, 0], dtype=torch.bool, device=cuda)
+    live = torch.arange(8, device=cuda) < (6 if mode == "live_packets" else 8)
+    assert torch.all(got.inner_visits[is_leaf] == 0)
+    assert torch.all((got.leaf_tests[is_leaf & live] > 0)) and (got.tri[[0, 1, 3, 5]] >= 0).any(dim=1).all()
+    assert torch.all(got.tri[4] == -1) and torch.all(got.tri[~live] == -1)
+
+
+def test_twolevel_tracer_on_card(cuda, atrium):
+    """The two-level tracer on the card: the CPU's result (K2 bit for bit
+    with its plain version), the flat tracer's hits, ``rounds + 1`` K2
+    launches, and no host sync in a warm trace."""
+    from minipath_tpu_torch.render.twolevel import build_treelets, make_pt_tracer_twolevel
+
+    bvh, _ = atrium
+    r9 = _bounce_rays(atrium, cuda, B=8, seed=6)
+    flat = r9.transpose(1, 2).reshape(-1, 9)
+    n_live = flat.shape[0] * 3 // 4
+
+    def trace(device, sync_check=False):
+        scene = bvh.pt_scene(device)
+        tracer, _ = make_pt_tracer_twolevel(scene, build_treelets(bvh.host_arrays, 2, device=device),
+                                            stack_size=bvh.recommended_stack_size, rounds=2)
+        f = flat.to(device)
+        live = torch.tensor([n_live], dtype=torch.int32, device=device)
+        tracer(scene, f[:, 0:3], f[:, 3:6], f[:, 6:9], live)
+        if not sync_check:
+            return tracer(scene, f[:, 0:3], f[:, 3:6], f[:, 6:9], live)
+        torch.cuda.synchronize()
+        before = kernels.trace_packets_pt.launches["closest"]
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = tracer(scene, f[:, 0:3], f[:, 3:6], f[:, 6:9], live)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert kernels.trace_packets_pt.launches["closest"] == before + 3
+        return out
+
+    got = trace(cuda, sync_check=True)
+    want = trace("cpu")
+    for name in ("t", "tri", "material", "overflow", "inner_visits", "leaf_tests"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), name
+    torch.testing.assert_close(got.normal.cpu(), want.normal, rtol=0, atol=1e-6)
+    scene = bvh.pt_scene(cuda)
+    tracer, _ = tw.make_pt_tracer(scene, stack_size=bvh.recommended_stack_size)
+    ref = tracer(scene, flat[:, 0:3], flat[:, 3:6], flat[:, 6:9], n_live)
+    same = (got.tri == ref.tri)[:n_live].float().mean().item()
+    assert same >= 0.999 and bool((got.tri[n_live:] == -1).all()) and int(got.overflow) == 0
+
+
 def _tie_scene_and_rays(device, B=8):
     from minipath_tpu_torch.geometry.ray import make_rays
 

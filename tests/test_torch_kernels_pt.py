@@ -232,6 +232,57 @@ def test_roots_and_live_packets_match_jax(atrium):
     assert torch.equal(as_int.tri, as_tensor.tri) and np.all(as_int.tri.numpy()[1:] == -1)
 
 
+def _leaf_roots(res, tri):
+    """For each packet of ``tri`` (the first hits of a ray set), the leaf
+    link whose triangle packets hold that packet's most frequent hit."""
+    links = np.asarray(res.arrays.node_child_links).reshape(-1)
+    leaves = links[(links != L.NULL_LINK) & ((links & L.COUNT_MASK) != 0)]
+    first, count = leaves >> L.COUNT_BITS, leaves & L.COUNT_MASK
+    out = []
+    for row in tri:
+        pk = np.bincount(row[row >= 0] >> 3).argmax()
+        out.append(int(leaves[(first <= pk) & (pk < first + count)][0]))
+    return out
+
+
+@pytest.mark.parametrize("anyhit", [False, True], ids=["closest", "anyhit"])
+def test_leaf_roots_match_jax(atrium, anyhit):
+    """Leaf links as per-packet roots, beside an inner link and a NULL root,
+    with a live-packet prefix: the two-level tracer's usual roots. K2 enters
+    a leaf root straight into its triangle tests, without a box test."""
+    res, jscene, tscene = atrium
+    o, d = _ray_sets(res, tscene)["coherent"]
+    r9, jr9 = _rays9(o, d)
+    ss = res.recommended_stack_size
+    first = kernels.trace_packets_pt(tscene, r9, stack_size=ss).tri.numpy()
+    leaf = _leaf_roots(res, first)
+    root = int(res.arrays.root)
+    inner = [int(c) for c in np.asarray(res.arrays.node_child_links)[root >> L.COUNT_BITS]
+             if c != L.NULL_LINK and (c & L.COUNT_MASK) == 0]
+    # The inner child of the root under which packet 1 finds the most hits.
+    hits = [(kernels.trace_packets_pt(tscene, r9[1:2], stack_size=ss, roots=torch.tensor([c])).tri >= 0).sum()
+            for c in inner]
+    roots = np.array([leaf[0], inner[int(np.argmax(hits))], L.NULL_LINK, leaf[3]], np.int32)
+    t_max = 1e3 if anyhit else np.inf
+    for live in (None, 3):
+        kw = {} if live is None else {"live_packets": live}
+        got = kernels.trace_packets_pt(tscene, r9, stack_size=ss, roots=torch.from_numpy(roots), t_max=t_max,
+                                       anyhit=anyhit, **{k: torch.tensor(v) for k, v in kw.items()})
+        want = trace_packets_pallas_pt(jscene, jr9, stack_size=ss, interpret=True, roots=jnp.asarray(roots),
+                                       t_max=t_max, anyhit=anyhit, **kw)
+        if anyhit:
+            np.testing.assert_array_equal(got.tri.numpy() >= 0, np.asarray(want.tri) >= 0)
+        else:
+            _compare(got, want)  # a ray on an edge two triangles share is a tie either may win
+        tri = got.tri.numpy()
+        assert np.all(tri[2] == -1) and (tri[0] >= 0).any() and (tri[1] >= 0).any()
+        assert (tri[3] >= 0).any() == (live is None)
+        # A leaf root tests only its own triangles, and no inner node.
+        pk = tri[0][tri[0] >= 0] >> 3
+        assert np.all((pk >= leaf[0] >> L.COUNT_BITS) & (pk < (leaf[0] >> L.COUNT_BITS) + (leaf[0] & L.COUNT_MASK)))
+        assert got.inner_visits.numpy()[0] == 0 and got.leaf_tests.numpy()[0] == P * (leaf[0] & L.COUNT_MASK)
+
+
 def test_empty_scene_misses(atrium):
     res = jax_build_bvh(MeshData())
     scene = kernels.prepare_scene_pt(from_numpy(res.arrays._asdict(), "cpu"))

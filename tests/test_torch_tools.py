@@ -1,0 +1,166 @@
+"""The path tracer's tools (``minipath_tpu_torch/tools/``) on the CPU, made
+tiny: the smallest atrium ``make_atrium`` makes (about 13k triangles, built
+once into a temporary cache), frames of a few hundred pixels, one timed
+frame, and the device-health probe at toy sizes, as tests/test_torch_bench.py
+runs the bench. What is checked is each tool's behaviour, not a number: its
+JSON line carries every key of the JAX-era artifact it stands in for (read
+from the repository's root and left as it is), ``--out`` writes the same
+JSON, nothing is written at the repository's root, and ``--device cuda``
+without a card exits 2. Then the bounce loop's annotations: every phase name
+appears in a CPU ``torch.profiler`` run of ``_pt_trace``, and
+``utils/profiling.py::trace`` writes them into a Chrome trace.
+"""
+
+import contextlib
+import io
+import json
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from minipath_tpu_torch import bench
+from minipath_tpu_torch.tools import bench_pt, convergence_pt, isolate_qpt, profile_pt_headline
+from minipath_tpu_torch.utils import calibrate
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def _bench_pt(b):
+    assert b["metric"] == "pt_atrium_32x16_2spp_5bounces" and b["nee_capped_depth"] == 1
+    assert b["wavefront_vs_megakernel"] == round(b["megakernel_mean_s"] / b["wavefront_mean_s"], 2)
+    assert 0 <= b["estimator_mean_delta"] < 1.0 and b["value"] > 0
+
+
+def _convergence_pt(c):
+    assert c["top_spp"] == 8 and c["rungs"] == [] and c["noise_floor_rmse"] > 0
+    assert c["estimators_agree"] == (c["megakernel_rmse_vs_wavefront"] < 2 * c["noise_floor_rmse"])
+    assert [g["spp"] for g in c["stratification_gain"]] == [8]
+
+
+def _isolate_qpt(q):
+    assert q["trace_rays"] == 2 * 2 * 256  # two 16x16-pixel blocks, 2 samples
+    assert q["quantized_lean_inner_visits"] >= q["f32_lean_inner_visits"] > 0
+    assert q["visit_ratio_q_over_f32"] >= 1.0 and q["f32_lean_ns_per_visit"] > 0
+
+
+def _profile_pt_headline(p):
+    assert p["chunks"] == 1 and p["phase_clock"] == "host" and p["trace_achieved_gops"] is None
+    phases = p["phase_ms"]
+    assert phases["trace"] > 0 and phases["compaction"] > 0 and phases["bsdf_scatter"] > 0
+    assert phases["nee_light_sample"] == phases["shadow_trace"] == 0.0  # BSDF sampling only
+    assert len(p["per_bounce"]) == profile_pt_headline.BOUNCES
+    assert p["per_bounce"][0]["compaction_ms"] == 0.0 and p["per_bounce"][1]["compaction_ms"] > 0
+    counters = p["trace_counters"]
+    assert counters["inner_visits"] > 0 and counters["inner_ops_per_lane"] == 200
+    assert counters["leaf_ops_per_lane"] == 384
+
+
+# Each tool, the JAX-era artifact whose keys it keeps, its tiny sizes, and
+# what must hold among the numbers it derives.
+TOOLS = {
+    "bench_pt": (bench_pt, "BENCH_pt.json", ["32", "16", "2"], _bench_pt),
+    "convergence_pt": (convergence_pt, "CONVERGENCE.json", ["32", "16", "8"], _convergence_pt),
+    "isolate_qpt": (isolate_qpt, "ISOLATE_QPT.json", ["32", "16", "2"], _isolate_qpt),
+    "profile_pt_headline": (profile_pt_headline, "PROFILE_PT.json", ["32", "16", "2"], _profile_pt_headline),
+}
+
+
+@pytest.fixture(scope="module")
+def cache_dir(tmp_path_factory):
+    return tmp_path_factory.mktemp("tools_cache")
+
+
+@pytest.fixture
+def tiny(monkeypatch, cache_dir):
+    monkeypatch.setattr(bench, "CACHE", cache_dir)
+    monkeypatch.setattr(bench, "ATRIUM_TRIANGLES", 2000)
+    monkeypatch.setattr(bench_pt, "TIMED_FRAMES", 1)
+    monkeypatch.setattr(isolate_qpt, "TIMED_FRAMES", 1)
+    monkeypatch.setattr(isolate_qpt, "TRACE_REPS", 1)
+    monkeypatch.setattr(convergence_pt, "STRAT_SEEDS", 1)
+    monkeypatch.setattr(profile_pt_headline, "TIMED_FRAMES", 1)
+    monkeypatch.setattr(profile_pt_headline, "TIMED_CHUNKS", 1)
+    monkeypatch.setattr(calibrate, "MATMUL_N", 64)
+    monkeypatch.setattr(calibrate, "CHAIN_SHAPE", (8, 128))
+    monkeypatch.setattr(calibrate, "CHAIN_ITERS", 16)
+    monkeypatch.setattr(calibrate, "FETCH_BYTES", 1 << 16)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def few_threads():
+    """The plain traversal is thousands of small ops, which gain nothing from
+    many threads and lose a lot when several test processes share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+def _root_state():
+    return {p.name: (p.stat().st_size, p.stat().st_mtime_ns) for p in REPO.iterdir()}
+
+
+@pytest.mark.parametrize("name", list(TOOLS))
+def test_tool_keeps_the_artifact_keys(tiny, tmp_path, name):
+    tool, artifact, size, check = TOOLS[name]
+    want = json.loads((REPO / artifact).read_text())
+    before = _root_state()
+    out_path = tmp_path / f"{name}.json"
+    said = io.StringIO()
+    with contextlib.redirect_stdout(said):
+        rc = tool.main(["--device", "cpu", "--out", str(out_path), *size])
+    assert rc == 0
+    lines = said.getvalue().splitlines()
+    assert len(lines) == 1
+    got = json.loads(lines[0])
+    assert set(want) <= set(got), set(want) - set(got)
+    assert json.loads(out_path.read_text()) == got
+    assert got["device"] == "cpu"
+    if "device_health" in want:
+        assert set(got["device_health"]) >= set(want["device_health"]) - {"device"}
+    assert _root_state() == before  # no artifact rewritten, no file added at the root
+    check(got)
+
+
+@pytest.mark.parametrize("name", list(TOOLS))
+def test_no_card_exits_2(monkeypatch, capsys, name):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert TOOLS[name][0].main([]) == 2
+    captured = capsys.readouterr()
+    assert captured.out == "" and "no CUDA device" in captured.err
+
+
+def test_annotations_name_every_phase_of_the_bounce_loop(tmp_path):
+    """A NEE frame with compaction, profiled on the CPU through
+    ``utils/profiling.py::trace``: every annotated phase shows up, in the
+    profiler's table and in the Chrome trace it writes."""
+    from minipath_tpu_torch import Camera, TriangleBvh
+    from minipath_tpu_torch.render import wavefront as tw
+    from minipath_tpu_torch.scene import materials as tm
+    from minipath_tpu_torch.scene import procedural
+    from minipath_tpu_torch.utils.profiling import annotate, trace
+
+    mesh = procedural.make_atrium(0)
+    ids, dicts = procedural.atrium_materials(mesh)
+    bvh = TriangleBvh.build(mesh, materials=ids, leaf_max=24)
+    scene = bvh.pt_scene("cpu")
+    table = tm.material_table(dicts, "cpu")
+    tracer, _ = tw.make_pt_tracer(scene, stack_size=bvh.recommended_stack_size)
+    shadow, _ = tw.make_pt_shadow_tracer(scene, stack_size=bvh.recommended_stack_size)
+    lights = tm.build_light_table(bvh.host_arrays.tri_packets, bvh.host_arrays.tri_material, table)
+    camera = Camera().look_at((-16.0, 4.0, 0.0), (10.0, 3.0, 0.5)).f_number(8.0).sensor_width(36e-3)
+    with trace(tmp_path / "prof") as prof:
+        with annotate("test.frame"):
+            img = tw.render_frame_pt(tracer, scene, table, camera.build_sampler((16, 16), "cpu"),
+                                     torch.Generator().manual_seed(0), width=16, height=16, spp=2, bounces=2,
+                                     samples_per_packet=2, lights=lights, shadow_tracer=shadow)
+    assert np.isfinite(img.numpy()).all()
+    names = {e.key for e in prof.key_averages()}
+    assert set(profile_pt_headline.PHASES) | {"test.frame"} <= names
+    text = (tmp_path / "prof" / "trace.json").read_text()
+    for name in profile_pt_headline.PHASES:
+        assert f'"{name}"' in text, name
+    counts = {e.key: e.count for e in prof.key_averages()}
+    assert counts["pt.trace"] == 2 and counts["pt.compaction"] == 1 and counts["pt.environment_emission"] == 4

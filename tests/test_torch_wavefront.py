@@ -216,6 +216,38 @@ def test_seed_matched_sobol_frame(small_atrium, nee):
     assert got[..., :3].mean() > 0.05
 
 
+def test_seed_matched_sobol_frame_uncompacted(small_atrium):
+    """The megakernel mode (``compaction=False``, the CLI's
+    ``--no-compaction``): every bounce traces the whole wavefront with its
+    dead lanes masked. Against the JAX frame in the same mode within the
+    seed-matched tolerances, and bit for bit against the port's compacted
+    frame: with Sobol strata keyed on each path's pixel and no roulette,
+    compaction only reorders the same paths."""
+    res, dicts = small_atrium
+    W = H = 16
+    kw = dict(width=W, height=H, spp=2, bounces=3, samples_per_packet=2, sobol=True, shadow_rr=False)
+    seed = 7654321
+    jscene = jax_prepare_scene_pt(res.as_device())
+    jtracer, _ = jw.make_pt_tracer(jscene, stack_size=res.recommended_stack_size, interpret=True)
+    jsampler = _bench_camera(jax_camera.Camera).build_sampler((W, H))
+    want = np.asarray(jw.render_frame_pt(jtracer, jscene, jm.material_table(dicts), jsampler, jax.random.key(0),
+                                         strat_seed=seed, compaction=False, **kw))
+    scene = kernels.prepare_scene_pt(from_numpy(res.arrays._asdict(), "cpu"))
+    tracer, _ = tw.make_pt_tracer(scene, stack_size=res.recommended_stack_size)
+    sampler = CameraSampler.from_numpy({k: np.asarray(v) for k, v in jsampler._asdict().items()}, "cpu")
+
+    def frame(compaction):
+        return tw.render_frame_pt(tracer, scene, tm.material_table(dicts, "cpu"), sampler, None, strat_seed=seed,
+                                  compaction=compaction, **kw).numpy()
+
+    got = frame(False)
+    assert got.shape == want.shape == (H, W, 4) and np.isfinite(got).all()
+    close = np.all(np.abs(got - want) <= 1e-4, axis=-1)
+    assert close.mean() >= 0.98, close.mean()
+    np.testing.assert_allclose(got[..., :3].mean(), want[..., :3].mean(), rtol=1e-3)
+    np.testing.assert_array_equal(got, frame(True))
+
+
 def _floor_bvh(mat_count=1, panel=False):
     floor = procedural.make_quad(100.0)
     pos = floor.positions.copy()
@@ -269,6 +301,19 @@ def test_analytic_frames(case):
     rgb = img[..., :3].numpy()
     np.testing.assert_allclose(rgb, np.broadcast_to(want, rgb.shape), rtol=0, atol=atol)
     assert np.all(img[..., 3].numpy() == 1.0)
+
+
+def test_compaction_matches_megakernel_mean():
+    """The port of tests/test_wavefront.py's
+    ``test_compaction_matches_megakernel_mean``: iid frames of a grey floor
+    under the sky, compacted and uncompacted, from two seeds; the image
+    means agree within 5%."""
+    table = tm.material_table([tm.lambertian((0.5, 0.5, 0.5))], "cpu")
+    env = tm.Environment.sky("cpu")
+    a, b = (_render(_floor_bvh(), table, _down_camera(), env, spp=8, bounces=4, seed=seed, compaction=compaction)
+            for seed, compaction in ((1, True), (2, False)))
+    np.testing.assert_allclose(a[..., :3].mean().item(), b[..., :3].mean().item(), rtol=0.05)
+    assert a[..., :3].mean().item() > 0.05
 
 
 def test_iid_nee_mean_matches_bsdf_only():

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (``minipath_tpu_torch``) on one NVIDIA GPU.
 
-Run from the root of a checkout: ``python3 chip_smoke.py``. Twenty phases,
+Run from the root of a checkout: ``python3 chip_smoke.py``. Twenty-four phases,
 each printing its lines as it finishes; any failure raises and the script
 exits non-zero. There is no CPU path: without a CUDA device it fails at once.
 
@@ -132,8 +132,9 @@ Phase 19 runs after phase 18; phase 20 after phase 13:
     (levels, rounds) = (2, 1), (2, 2) and (3, 2) against the flat tracer
     (tri on 99.99% of rays, t within 1e-5, no overflow, rounds + 1 launches,
     no host sync in a warm trace under ``set_sync_debug_mode("error")``),
-    with both traces' times; then phase 7's NEE-capped 1080p frame through it
-    (channel means within 0.5% of phase 7's, launches, warm seconds), and a
+    with both traces' times; then phase 7's NEE-capped 1080p frame through it,
+    cut to 32 spp to hold the script near ten minutes (channel means within
+    0.5% of phase 7's, launches, warm seconds), and a
     960x540 @ 8 spp Sobol frame with no roulette against the flat tracer's
     (99.9% of values equal).
 20. The path tracer's tools, each ``python -m minipath_tpu_torch.tools.<name>
@@ -146,6 +147,32 @@ Phase 19 runs after phase 18; phase 20 after phase 13:
     (``estimators_agree``). Each must exit 0 and print the keys of its
     JAX-era artifact (``BENCH_pt.json``, ``ISOLATE_QPT.json``,
     ``PROFILE_PT.json``, ``CONVERGENCE.json``).
+
+Phase 21 runs after phase 7, while phase 6's ray sets are on the card;
+phases 22-24 after phase 20, each tool in a subprocess at its full size:
+
+21. ``shadow_sort``: phase 7's NEE-capped 1080p @ 64 frame under each of
+    ``"pos"``, ``"dir"``, ``"light"`` and ``"fromlight"`` (then ``"pos"``
+    again), warm seconds and K2's any-hit milliseconds by CUDA events around
+    each launch; the same frame in Sobol mode with a fixed pairing seed,
+    where ``"dir"`` and ``"light"`` equal ``"pos"`` bit for bit (occlusion
+    is decided per segment) and ``"fromlight"``, which traces each segment
+    reversed, agrees on 99.5% of pixels within 1e-5 with channel means within
+    0.1%; then the portable engine (``make_portable_tracer``,
+    ``make_portable_shadow_tracer``) against K2 on phase 6's 524,288 bounce-1
+    rays (tri on 99.99%, t within 1e-5 relative plus 1e-6 on 99.99% of the
+    same hits) and its shadow set (occlusion equal).
+22. ``tools.parity_big``: K3 lean over the quantized layout and K2 over the
+    f32 one against the portable engine on the 649,684-triangle atrium,
+    by rays, by occlusion and by frames, its gates enforced.
+23. ``tools.demo_bigscene`` (1.5M triangles) and ``tools.demo_hugescene``
+    (4,999,484 triangles with materials): both layouts' bytes, the parity
+    frame at 1920x1080 @ 16 over K1 and K3, the path-traced frame at 960x540
+    @ 4 over K2 and K3 lean, the portable engine's rate, their gates; then
+    K1, K2 and K3 (full and lean) on the 5M scene, loaded from the tool's
+    cache, against their plain versions on 524,288 rays each.
+24. ``tools.bench_quality``: the estimator sections of ``QUALITY.json`` over
+    K2, its gate holding K2's frame to the portable engine's.
 
 ``python3 chip_smoke.py --kernels-only`` runs phases 1, 2, 3, 6 and 10 alone:
 the traversal kernels against their plain versions, with their times, bounds
@@ -718,10 +745,11 @@ def frame_inputs(device, width, height):
     return bench_camera().build_sampler((width, height), device), Environment.sky(device)
 
 
-def render_pt(parts, device, width, height, spp, nee_max_depth, samples_per_packet, seed, lit=True):
+def render_pt(parts, device, width, height, spp, nee_max_depth, samples_per_packet, seed, lit=True, **kw):
     """One path-traced frame of the bench camera; returns ``(host image,
     seconds)``: host clock from the call to the image on the host. Raises
-    on a non-finite image, and on a black one where the scene is ``lit``."""
+    on a non-finite image, and on a black one where the scene is ``lit``.
+    ``kw`` goes to ``render_frame_pt``."""
     from minipath_tpu_torch.render.wavefront import render_frame_pt
 
     scene, table, lights, tracer, shadow = parts
@@ -732,7 +760,7 @@ def render_pt(parts, device, width, height, spp, nee_max_depth, samples_per_pack
     img = render_frame_pt(
         tracer, scene, table, sampler, gen, width=width, height=height, spp=spp, bounces=PT_BOUNCES,
         env=env, samples_per_packet=samples_per_packet, compaction=True, lights=lights,
-        shadow_tracer=shadow, nee_max_depth=nee_max_depth,
+        shadow_tracer=shadow, nee_max_depth=nee_max_depth, **kw,
     ).cpu().numpy()
     seconds = time.perf_counter() - t0
     if img.shape != (height, width, 4) or not np.isfinite(img).all():
@@ -832,11 +860,9 @@ def phase_pt_cli():
 
 def kernel_launch_counts() -> dict:
     """Every traversal wrapper's launch count, flattened."""
-    from minipath_tpu_torch.render import kernels, kernels_q
+    from minipath_tpu_torch.tools.common import kernel_launches
 
-    return {"K1": kernels.trace_packets.launches,
-            **{f"K2 {m}": n for m, n in kernels.trace_packets_pt.launches.items()},
-            **{f"K3 {m}": n for m, n in kernels_q.trace_packets_q.launches.items()}}
+    return kernel_launches()
 
 
 def phase_denoise(pt_bvh, parts, ref64, device, smi):
@@ -1673,6 +1699,11 @@ def phase_adaptive(parts, pt_mean, device, smi):
 # the full-width frame's. Exact ties between triangles in two treelets may
 # resolve apart, so hits are held by share; the Sobol frame by its values.
 TWOLEVEL_CONFIGS, TWOLEVEL_FRAME = ((2, 1), (2, 2), (3, 2)), (2, 2)
+# The frame through the two-level tracer traces half of phase 7's samples: at
+# 64 it takes 4.7x phase 7's frame, about 16 s on an NVIDIA H100 80GB HBM3 at
+# 700 W, and runs twice (cold and warm). So the script stays near ten minutes
+# with phases 21-24.
+TWOLEVEL_FRAME_SPP = 32
 TWOLEVEL_SOBOL, TWOLEVEL_VALUE_SHARE = (960, 540, 8), 0.999
 
 
@@ -1759,26 +1790,28 @@ def phase_twolevel(pt_bvh, parts, ref64, pt_warm, device, smi):
     # (b) Phase 7's frame with the two-level tracer in place of the flat one.
     two = tracers[TWOLEVEL_FRAME]
     two_parts = (scene, table, lights, two, shadow)
-    _, cold = render_pt(two_parts, device, PT_WIDTH, PT_HEIGHT, PT_SPP, 1, 2, seed=90)
+    _, cold = render_pt(two_parts, device, PT_WIDTH, PT_HEIGHT, TWOLEVEL_FRAME_SPP, 1, 2, seed=90)
     reset_launches()
     torch.cuda.set_sync_debug_mode("warn")
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            img, warm = render_pt(two_parts, device, PT_WIDTH, PT_HEIGHT, PT_SPP, 1, 2, seed=91)
+            img, warm = render_pt(two_parts, device, PT_WIDTH, PT_HEIGHT, TWOLEVEL_FRAME_SPP, 1, 2, seed=91)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     launches = {k: v for k, v in kernel_launch_counts().items() if v}
     syncs = sum("synchroniz" in str(w.message) for w in caught)
     ref_means, means = ref64[..., :3].mean(axis=(0, 1)), img[..., :3].mean(axis=(0, 1))
     rel = np.abs(means - ref_means) / ref_means
-    text = (f"render_frame_pt {PT_WIDTH}x{PT_HEIGHT} @ {PT_SPP} spp, {PT_BOUNCES} bounces, NEE at depth 1, through the "
-            f"two-level tracer (levels {TWOLEVEL_FRAME[0]}, rounds {TWOLEVEL_FRAME[1]}) on {smi}: warm {warm:.3f} s "
-            f"(cold {cold:.3f} s) against phase 7's {pt_warm:.3f} s ({warm / pt_warm:.2f}x) | launches {launches} | "
+    flat_warm = pt_warm * TWOLEVEL_FRAME_SPP / PT_SPP  # phase 7's frame at this frame's samples
+    text = (f"render_frame_pt {PT_WIDTH}x{PT_HEIGHT} @ {TWOLEVEL_FRAME_SPP} spp, {PT_BOUNCES} bounces, NEE at depth 1, "
+            f"through the two-level tracer (levels {TWOLEVEL_FRAME[0]}, rounds {TWOLEVEL_FRAME[1]}) on {smi}: warm "
+            f"{warm:.3f} s (cold {cold:.3f} s) against {flat_warm:.3f} s, phase 7's {pt_warm:.3f} s for {PT_SPP} spp "
+            f"scaled ({warm / flat_warm:.2f}x) | launches {launches} | "
             f"host syncs {syncs} | channel means {np.round(means, 5).tolist()} against phase 7's "
             f"{np.round(ref_means, 5).tolist()} (largest rel {rel.max():.3e})")
     if (not np.isfinite(img).all() or rel.max() > SHARD_MEAN_RTOL
-            or launches.get("K2 closest") != PT_SPP // 2 * PT_BOUNCES * (TWOLEVEL_FRAME[1] + 1)):
+            or launches.get("K2 closest") != TWOLEVEL_FRAME_SPP // 2 * PT_BOUNCES * (TWOLEVEL_FRAME[1] + 1)):
         raise AssertionError(f"the two-level frame disagrees with phase 7's: {text}")
     log("19 two-level", text)
 
@@ -1814,50 +1847,277 @@ TOOL_RUNS = (
 BENCH_PT_DELTA, TOOL_TIMEOUT_S = 0.01, 600
 
 
+def run_tool(name, artifact, args=(), timeout=TOOL_TIMEOUT_S):
+    """``python -m minipath_tpu_torch.tools.<name> --device cuda --out ...``
+    in a subprocess: it must exit 0, print one JSON line with the keys of
+    ``artifact`` (a file of the repository, or a tuple of keys) and write
+    the same JSON. Returns ``(JSON, seconds)``."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / f"{name}.json"
+        cmd = [sys.executable, "-m", f"minipath_tpu_torch.tools.{name}", "--device", "cuda", "--out", str(out),
+               *args]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=timeout)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0 or not out.exists():
+            raise AssertionError(f"{name} exited {proc.returncode}:\n{proc.stdout[-3000:]}\n{proc.stderr[-4000:]}")
+        got = json.loads(proc.stdout.splitlines()[-1])
+        want = json.loads((REPO / artifact).read_text()) if isinstance(artifact, str) else dict.fromkeys(artifact)
+        missing = set(want) - set(got)
+        if missing or json.loads(out.read_text()) != got:
+            raise AssertionError(f"{name}: keys of {artifact} missing {sorted(missing)}, or --out differs")
+    return got, seconds
+
+
 def phase_tools(smi):
     """Phase 20: ``python -m minipath_tpu_torch.tools.<name> --device cuda
     --out ...`` for each tool: exit 0, the artifact's keys, the megakernel
     in agreement with the wavefront."""
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
-        for name, artifact, size in TOOL_RUNS:
-            out = Path(tmp) / f"{name}.json"
-            cmd = [sys.executable, "-m", f"minipath_tpu_torch.tools.{name}", "--device", "cuda", "--out", str(out),
-                   *size]
-            t0 = time.perf_counter()
-            proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=TOOL_TIMEOUT_S)
-            seconds = time.perf_counter() - t0
-            if proc.returncode != 0 or not out.exists():
-                raise AssertionError(f"{name} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
-            got = json.loads(proc.stdout.splitlines()[-1])
-            missing = set(json.loads((REPO / artifact).read_text())) - set(got)
-            if missing or json.loads(out.read_text()) != got:
-                raise AssertionError(f"{name}: keys of {artifact} missing {sorted(missing)}, or --out differs")
-            if name == "bench_pt":
-                head = {k: got[k] for k in ("value", "wavefront_mean_s", "megakernel_mean_s", "wavefront_vs_megakernel",
-                                            "estimator_mean_delta", "nee_mean_s", "nee_capped_mean_s")}
-                bad = got["estimator_mean_delta"] > BENCH_PT_DELTA
-            elif name == "convergence_pt":
-                head = {k: got[k] for k in ("rungs", "wavefront_top_s", "megakernel_top_s", "noise_floor_rmse",
-                                            "megakernel_rmse_vs_wavefront", "estimators_agree",
-                                            "stratification_gain")}
-                bad = not got["estimators_agree"]
-            elif name == "isolate_qpt":
-                head = {k: v for k, v in got.items() if k not in ("workload", "device", "device_health")}
-                bad = False
-            else:
-                head = {k: got[k] for k in ("frame_s", "fused_chunk_s", "chunk_boundary_s", "phase_ms",
-                                            "unattributed_device_ms", "profiled_chunk_device_ms", "k2_closest_ms",
-                                            "per_bounce", "trace_counters", "trace_achieved_gops",
-                                            "trace_vpu_utilization", "trace_fp32_peak_share")}
-                bad = not got["phase_ms"]["trace"] > 0
-            text = f"{name} on {smi}: exit 0 in {seconds:.1f} s, keys of {artifact} present | {json.dumps(head)}"
-            if bad:
-                raise AssertionError(f"{name} fails its gate: {text}")
-            log("20 tools", text)
-            log("20 tools", f"{name} device_health {json.dumps(got.get('device_health'))}")
+    for name, artifact, size in TOOL_RUNS:
+        got, seconds = run_tool(name, artifact, size)
+        if name == "bench_pt":
+            head = {k: got[k] for k in ("value", "wavefront_mean_s", "megakernel_mean_s", "wavefront_vs_megakernel",
+                                        "estimator_mean_delta", "nee_mean_s", "nee_capped_mean_s")}
+            bad = got["estimator_mean_delta"] > BENCH_PT_DELTA
+        elif name == "convergence_pt":
+            head = {k: got[k] for k in ("rungs", "wavefront_top_s", "megakernel_top_s", "noise_floor_rmse",
+                                        "megakernel_rmse_vs_wavefront", "estimators_agree",
+                                        "stratification_gain")}
+            bad = not got["estimators_agree"]
+        elif name == "isolate_qpt":
+            head = {k: v for k, v in got.items() if k not in ("workload", "device", "device_health")}
+            bad = False
+        else:
+            head = {k: got[k] for k in ("frame_s", "fused_chunk_s", "chunk_boundary_s", "phase_ms",
+                                        "unattributed_device_ms", "profiled_chunk_device_ms", "k2_closest_ms",
+                                        "per_bounce", "trace_counters", "trace_achieved_gops",
+                                        "trace_vpu_utilization", "trace_fp32_peak_share")}
+            bad = not got["phase_ms"]["trace"] > 0
+        text = f"{name} on {smi}: exit 0 in {seconds:.1f} s, keys of {artifact} present | {json.dumps(head)}"
+        if bad:
+            raise AssertionError(f"{name} fails its gate: {text}")
+        log("20 tools", text)
+        log("20 tools", f"{name} device_health {json.dumps(got.get('device_health'))}")
     log("20 tools", f"phase time {time.perf_counter() - t_phase:.1f} s")
+
+
+# Phase 21: the NEE shadow sort. Sobol frames of the modes that only reorder
+# the segments equal the "pos" frame bit for bit; "fromlight" traces each
+# segment reversed, whose rounding may flip a grazing one.
+SHADOW_SORTS = ("pos", "dir", "light", "fromlight")
+SHADOW_SORT_SEED = 20261017
+FROMLIGHT_SHARE, FROMLIGHT_ATOL, FROMLIGHT_MEAN_RTOL = 0.995, 1e-5, 1e-3
+# The portable engine's t against K2's: T_RTOL plus this, on TRI_MATCH of the
+# hits where both found the same triangle. Its torch ops on the card contract
+# multiply-adds that K2 (-fmad=false) rounds one by one: a last-bit difference
+# of terms of order 1, 2e-5 relative on a hit 2e-3 from a bounce ray's origin,
+# and more on a triangle seen edge-on, whose t is ill-conditioned (3.5e-5
+# relative at t = 2 on one of phase 6's 524,288 bounce-1 rays on an NVIDIA H100
+# 80GB HBM3).
+PORTABLE_T_ATOL = 1e-6
+
+
+def phase_shadow_sort(parts, sets, pt_bvh, device, smi):
+    """Phase 21: phase 7's NEE-capped frame under each ``shadow_sort`` mode
+    (warm seconds, K2 any-hit ms by CUDA events around each launch); the
+    same frame in Sobol mode, every mode against ``"pos"``; then the
+    portable tracers against K2 on phase 6's bounce-1 and shadow sets.
+    Returns the launches of the timed frames by mode."""
+    from minipath_tpu_torch.render import kernels
+    from minipath_tpu_torch.render import wavefront as W
+
+    t_phase = time.perf_counter()
+    scene, table, lights, tracer, shadow = parts
+    events = []
+    inner = W.trace_packets_pt
+
+    def timed_k2(*a, anyhit=False, **kw):
+        if not anyhit:
+            return inner(*a, anyhit=anyhit, **kw)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = inner(*a, anyhit=anyhit, **kw)
+        end.record()
+        events.append((start, end))
+        return out
+
+    by_mode, frames = {}, {}
+    W.trace_packets_pt = timed_k2
+    try:
+        for i, mode in enumerate(SHADOW_SORTS + ("pos",)):
+            events.clear()
+            reset_launches()
+            img, warm = render_pt(parts, device, PT_WIDTH, PT_HEIGHT, PT_SPP, 1, 2, seed=21, shadow_sort=mode)
+            torch.cuda.synchronize()
+            anyhit_ms = sum(a.elapsed_time(b) for a, b in events)
+            launches = {k: v for k, v in kernel_launch_counts().items() if v}
+            by_mode.setdefault(mode, launches)
+            frames.setdefault(mode, img)
+            log("21 shadow_sort", f"{mode}{' (again)' if i == len(SHADOW_SORTS) else ''}: render_frame_pt "
+                f"{PT_WIDTH}x{PT_HEIGHT} @ {PT_SPP} spp, NEE at depth 1, on {smi}: warm {warm:.3f} s | K2 any-hit "
+                f"{anyhit_ms:.3f} ms in {len(events)} launches ({anyhit_ms / max(len(events), 1):.4f} ms each) | "
+                f"launches {launches} | mean {img[..., :3].mean():.5f}, values equal to the first pos frame's "
+                f"{(img == frames['pos']).mean():.6f}")
+            if launches.get("K2 anyhit") != len(events) or not len(events):
+                raise AssertionError(f"{mode}: {len(events)} timed any-hit launches against {launches}")
+    finally:
+        W.trace_packets_pt = inner
+
+    sobol = {mode: render_pt(parts, device, PT_WIDTH, PT_HEIGHT, PT_SPP, 1, 2, seed=22, shadow_sort=mode, sobol=True,
+                             strat_seed=SHADOW_SORT_SEED)[0] for mode in SHADOW_SORTS}
+    pos = sobol["pos"]
+    for mode in SHADOW_SORTS[1:]:
+        img = sobol[mode]
+        close = (np.abs(img - pos) <= FROMLIGHT_ATOL).all(axis=-1).mean()
+        rel = np.abs(img[..., :3].mean(axis=(0, 1)) - pos[..., :3].mean(axis=(0, 1))) / pos[..., :3].mean(axis=(0, 1))
+        text = (f"Sobol frame, {mode} against pos: values equal {(img == pos).mean():.6f}, pixels within "
+                f"{FROMLIGHT_ATOL} {close:.6f}, channel means' largest rel diff {rel.max():.3e}")
+        if mode == "fromlight":
+            bad = close < FROMLIGHT_SHARE or rel.max() > FROMLIGHT_MEAN_RTOL
+        else:
+            bad = not np.array_equal(img, pos)
+        if bad:
+            raise AssertionError(f"shadow_sort={mode} changes the Sobol frame: {text}")
+        log("21 shadow_sort", text)
+
+    # The portable engine against K2: the bounce-1 set and the shadow set.
+    ss = pt_bvh.recommended_stack_size
+    arrays = pt_bvh.arrays(device)
+    portable, _ = W.make_portable_tracer(arrays, stack_size=ss)
+    portable_shadow, _ = W.make_portable_shadow_tracer(arrays, stack_size=ss)
+    flat = sets["bounce"].transpose(1, 2).reshape(-1, 9)
+    o, d, inv = flat[:, 0:3], flat[:, 3:6], flat[:, 6:9]
+    got = tracer(scene, o, d, inv)
+    (want, seconds) = timed(lambda: portable(arrays, o, d, inv))
+    same = got.tri == want.tri
+    hit = same & (want.tri >= 0)
+    dt = (got.t - want.t).abs()[hit]
+    t_rel = (dt / want.t.abs()[hit].clamp_min(1e-30)).max().item()
+    t_share = (dt <= PORTABLE_T_ATOL + T_RTOL * want.t.abs()[hit]).float().mean().item()
+    shadow9, live_s = sets["shadow"]
+    sflat = shadow9.transpose(1, 2).reshape(-1, 9)
+    occ = kernels.trace_packets_pt(scene, shadow9, stack_size=ss, t_max=W._SHADOW_T_MAX, live_packets=live_s,
+                                   anyhit=True).tri.reshape(-1) >= 0
+    occ_want, sh_seconds = timed(lambda: portable_shadow(arrays, sflat[:, 0:3], sflat[:, 3:6]))
+    text = (f"portable engine against K2 on phase 6's {flat.shape[0]} bounce-1 rays: tri match "
+            f"{same.float().mean().item():.6f}, t within {T_RTOL} rel + {PORTABLE_T_ATOL} on {t_share:.6f} of the "
+            f"same hits (max rel err {t_rel:.3g}, max abs {dt.max().item():.3g}), overflow {int(want.overflow.sum())}, "
+            f"{seconds:.2f} s | on its {sflat.shape[0]} shadow segments: occlusion equal "
+            f"{torch.equal(occ, occ_want)} ({int((occ != occ_want).sum())} differ), occluded "
+            f"{occ_want.float().mean().item():.4f}, {sh_seconds:.2f} s")
+    if (same.float().mean().item() < TRI_MATCH or t_share < TRI_MATCH or int(want.overflow.sum())
+            or not torch.equal(occ, occ_want)):
+        raise AssertionError(f"the portable engine disagrees with K2: {text}")
+    log("21 shadow_sort", text)
+    log("21 shadow_sort", f"phase time {time.perf_counter() - t_phase:.1f} s")
+    return by_mode
+
+
+def phase_parity_big(smi):
+    """Phase 22: ``tools.parity_big`` at full size; the tool's gates hold K3
+    and K2 to the portable engine. Returns its launches."""
+    got, seconds = run_tool("parity_big", "PARITY_BIG.json")
+    head = {k: got[k] for k in ("triangle_count", "over_f32_budget", "ray_parity", "anyhit_parity")}
+    head["frame_parity"] = {k: v for k, v in got["frame_parity"].items() if k not in ("workload", "timing_note")}
+    head["f32"] = {k: v if k != "frame_parity" else {a: b for a, b in v.items() if a not in ("workload", "timing_note")}
+                   for k, v in got["f32"].items()}
+    if got["gates_failed"]:
+        raise AssertionError(f"parity_big fails its gates {got['gates_failed']}: {head}")
+    log("22 parity_big", f"on {smi}: exit 0 in {seconds:.1f} s, keys of PARITY_BIG.json present | {json.dumps(head)}")
+    return got["kernel_launches"]
+
+
+# Phase 23: the demos' scenes; the keys of demo_bigscene's JSON line.
+HUGE_TRIANGLES, DEMO_LEAF_MAX = 5_000_000, 56
+BIGSCENE_KEYS = ("metric", "value", "unit", "f32_layout_fits", "quantized_vmem_mb")
+
+
+def phase_demos(device, smi):
+    """Phase 23: ``tools.demo_bigscene`` and ``tools.demo_hugescene`` at full
+    size (their gates: K3 against the portable engine on a small ray set,
+    the two layouts' frames, the two path-traced frames); then K1, K2 and K3
+    in full and lean mode on the 5M-triangle scene (from the tool's cache)
+    against their plain versions on 524,288 rays each. Returns the tools'
+    launches and the kernels' results."""
+    from minipath_tpu_torch.render import kernels, kernels_q
+    from minipath_tpu_torch.render.wavefront import make_pt_shadow_tracer, make_pt_tracer
+    from minipath_tpu_torch.scene.materials import build_light_table, table_from_numpy
+    from minipath_tpu_torch.tools import common
+
+    t_phase = time.perf_counter()
+    launches = {}
+    for name, artifact in (("demo_bigscene", BIGSCENE_KEYS), ("demo_hugescene", "BENCH_huge.json")):
+        got, seconds = run_tool(name, artifact)
+        head = {k: v for k, v in got.items() if k not in ("note", "kernel_launches", "device")}
+        if got["gates_failed"]:
+            raise AssertionError(f"{name} fails its gates: {head}")
+        log("23 demos", f"{name} on {smi}: exit 0 in {seconds:.1f} s | {json.dumps(head)}")
+        launches[name] = got["kernel_launches"]
+
+    t0 = time.perf_counter()
+    huge = common.atrium(HUGE_TRIANGLES, materials=True, leaf_max=DEMO_LEAF_MAX)
+    bvh, ss = huge.bvh, huge.bvh.recommended_stack_size
+    if not huge.cached:
+        raise AssertionError("demo_hugescene left no cached 5M-triangle atrium")
+    log("23 demos", f"{bvh.build_result.triangle_count}-triangle atrium loaded from the cache in "
+        f"{time.perf_counter() - t0:.1f} s (built in {huge.build_s:.1f} s), stack {ss}")
+    gen = torch.Generator(device=device).manual_seed(0)
+    part = dispatch_rays9(bench_camera().build_sampler((WIDTH, HEIGHT), device), device, gen)[:DISPATCH_SLICE]
+    part = part.contiguous()
+    results = {}
+
+    def check(key, kernel, run, plain, compare_fn):
+        got = run()
+        torch.cuda.synchronize()
+        want = plain()
+        text, err = compare_fn(got, want)
+        ms, plain_ms = cuda_ms(run, 10), cuda_ms(plain, 1)
+        log("23 demos", f"5M scene, {key}: {text} | kernel {ms:.4f} ms, plain {plain_ms:.2f} ms")
+        results.setdefault(kernel, {})[key] = dict(ms=ms, plain_ms=plain_ms, err=err)
+
+    k1 = kernels.prepare_scene(bvh.arrays(device))
+    check("K1 dispatch slice", "K1", lambda: kernels.trace_packets(k1, part, stack_size=ss),
+          lambda: kernels.trace_packets_reference(k1, part, stack_size=ss),
+          lambda g, w: compare("5M dispatch slice (K1)", g, w))
+    del k1
+    q = bvh.quantized_scene(device)
+    check("K3 full dispatch slice", "K3", lambda: kernels_q.trace_packets_q(q, part, stack_size=ss),
+          lambda: kernels_q.trace_packets_q_reference(q, part, stack_size=ss, t_max=math.inf, live_packets=None),
+          lambda g, w: compare("5M dispatch slice (K3 full)", g, w))
+    del part
+    table = table_from_numpy(huge.material_fields, device)
+    lights = build_light_table(bvh.host_arrays.tri_packets, bvh.host_arrays.tri_material, table)
+    pt = kernels.prepare_scene_pt(bvh.arrays(device))
+    parts = (pt, table, lights, make_pt_tracer(pt, stack_size=ss, packet_size=PT_PACKET)[0],
+             make_pt_shadow_tracer(pt, stack_size=ss, packet_size=PT_PACKET)[0])
+    r9, live_packets, _ = bounce1_wavefront(parts, device, torch.Generator(device=device).manual_seed(1))
+    pick = torch.arange(PT_SET_PACKETS, device=device) * int(live_packets) // PT_SET_PACKETS
+    bounce = r9[pick].contiguous()
+    del r9
+    check("K2 bounce-1 set", "K2", lambda: kernels.trace_packets_pt(pt, bounce, stack_size=ss),
+          lambda: kernels.trace_packets_pt_reference(pt, bounce, stack_size=ss),
+          lambda g, w: compare_pt("5M bounce-1 set (K2)", g, w))
+    qpt = bvh.quantized_pt_scene(device)
+    check("K3 lean bounce-1 set", "K3", lambda: kernels_q.trace_packets_q(qpt, bounce, stack_size=ss, lean=True),
+          lambda: kernels_q.trace_packets_q_reference(qpt, bounce, stack_size=ss, lean=True, t_max=math.inf,
+                                                      live_packets=None),
+          lambda g, w: compare_pt("5M bounce-1 set (K3 lean)", g, w, kernel="K3"))
+    log("23 demos", f"phase time {time.perf_counter() - t_phase:.1f} s")
+    return launches, results
+
+
+def phase_quality(smi):
+    """Phase 24: ``tools.bench_quality`` at full size over K2; its gate holds
+    K2's frame to the portable engine's. Returns its launches."""
+    got, seconds = run_tool("bench_quality", "QUALITY.json")
+    head = {k: v for k, v in got.items() if k not in ("kernel_launches", "device", "workload")}
+    if got["gates_failed"]:
+        raise AssertionError(f"bench_quality fails its gate: {head}")
+    log("24 quality", f"bench_quality on {smi}: exit 0 in {seconds:.1f} s, keys of QUALITY.json present | "
+        f"{json.dumps(head)}")
+    return got["kernel_launches"]
 
 
 # Phase 13: the chain kernels' checks and shapes. K4 at the device-health
@@ -2123,6 +2383,7 @@ def main() -> int:
     k2, sets = phase_k2(pt_bvh, parts, device)
     k2_launches, ref64, pt_warm = phase_pt_main_path(parts, device, smi)
     pt_mean = float(ref64[..., :3].mean())
+    shadow_sort_launches = phase_shadow_sort(parts, sets, pt_bvh, device, smi)
     phase_card_vs_cpu(pt_bvh, dicts, device)
     phase_pt_cli()
     if args.profile is not None:
@@ -2149,6 +2410,12 @@ def main() -> int:
     k4, k4_launches, k5, k5_launches, _ = phase_chain(device, smi)
     phase_bench(smi)
     phase_tools(smi)
+    for mode, counts in shadow_sort_launches.items():
+        by_path[f"shadow_sort {mode}"] = counts
+    by_path["parity_big"] = phase_parity_big(smi)
+    demo_launches, huge = phase_demos(device, smi)
+    by_path.update(demo_launches)
+    by_path["bench_quality"] = phase_quality(smi)
 
     def entry(name, source, replaces, launches, results, key, **extra):
         r = results[key]
@@ -2163,18 +2430,20 @@ def main() -> int:
         }
 
     def paths(kernel):
-        """Phases 17 and 18's launches of one kernel, by path."""
+        """Phases 17-19 and 21-24's launches of one kernel, by path (the
+        tools' as each subprocess counted them)."""
         out = {path: sum(n for k, n in counts.items() if k.split()[0] == kernel) for path, counts in by_path.items()}
         return {path: n for path, n in out.items() if n}
 
     chain = "minipath_tpu_torch/csrc/chain.cu"
     print(json.dumps({"kernels": [
         entry("traverse", "minipath_tpu_torch/csrc/traverse.cu", "minipath_tpu/render/pallas_kernels.py:165",
-              launches, kernel, "dispatch slice", launches_by_path=paths("K1")),
+              launches, kernel, "dispatch slice", launches_by_path=paths("K1"), huge_scene=huge["K1"]),
         entry("traverse_pt", "minipath_tpu_torch/csrc/traverse.cu", "minipath_tpu/render/pallas_kernels.py:1375",
-              k2_launches, k2, "bounce1", launches_by_path=paths("K2")),
+              k2_launches, k2, "bounce1", launches_by_path=paths("K2"), huge_scene=huge["K2"]),
         entry("traverse_q", "minipath_tpu_torch/csrc/traverse_q.cu", "minipath_tpu/render/pallas_kernels.py:650",
-              sum(q_launches.values()), k3, "full", launches_by_mode=q_launches, launches_by_path=paths("K3")),
+              sum(q_launches.values()), k3, "full", launches_by_mode=q_launches, launches_by_path=paths("K3"),
+              huge_scene=huge["K3"]),
         entry("vpu_chain", chain, "minipath_tpu/utils/calibrate.py:44", k4_launches, k4, CHAIN_CHECK_ITERS[-1]),
         *(entry(f"chain_{short}", chain, "tools/microbench_vpu_bf16.py:24", k5_launches[str(dtype)[6:]],
                 {key: r for (key, d), r in k5.items() if d == dtype}, "default",

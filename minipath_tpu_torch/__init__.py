@@ -34,6 +34,8 @@ from minipath_tpu_torch.render.frame import make_frame_renderer_sharded
 from minipath_tpu_torch.render.kernels_q import QPTScene, QuantizedScene, trace_scene
 from minipath_tpu_torch.render.wavefront import (
     make_full_tracer,
+    make_portable_shadow_tracer,
+    make_portable_tracer,
     make_pt_renderer_sharded,
     make_pt_shadow_tracer,
     make_pt_tracer,
@@ -73,6 +75,8 @@ __all__ = [
     "make_device_mesh",
     "make_frame_renderer_sharded",
     "make_full_tracer",
+    "make_portable_shadow_tracer",
+    "make_portable_tracer",
     "make_pt_renderer_sharded",
     "make_pt_shadow_tracer",
     "make_pt_tracer",

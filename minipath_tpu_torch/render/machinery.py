@@ -13,7 +13,9 @@ finish, new ones don't start), ``wait()``, ``image()``.
 
 The device is explicit: there is no silent switch to another engine. The
 sample count is rendered exactly, in passes of at most
-:data:`SAMPLES_PER_PASS` samples (``spp_effective`` reports it).
+:data:`SAMPLES_PER_PASS` samples or ``render(samples_per_pass=)``
+(``spp_effective`` reports it), where the JAX package rounds it up to
+equal passes.
 """
 
 from __future__ import annotations
@@ -150,6 +152,8 @@ def render(
     *,
     device=None,
     seed: int = 0,
+    samples_per_pass: int | None = None,
+    tile_rng=None,
     mesh=None,
 ) -> RenderProgress:
     """Start rendering on ``device`` (default ``cuda``); returns immediately
@@ -173,6 +177,11 @@ def render(
     a frame on the device and fetched once. ``seed`` seeds the film and
     lens samples (a ``torch.Generator`` on ``device``), each pass's stratum
     seed and the tile order: one seed gives one image.
+
+    ``samples_per_pass`` caps the samples traced in one pass (default
+    :data:`SAMPLES_PER_PASS`); the last pass takes the remainder.
+    ``tile_rng``, a NumPy ``Generator``, draws the tiles' order in place of
+    ``np.random.default_rng(seed)``.
     """
     obj = scene.object
     if not isinstance(obj, (TriangleBvh, Sphere)):
@@ -193,13 +202,14 @@ def render(
     th, tw = tile_shape
 
     screen = ScreenBlock.with_size((0, 0), (width, height))
-    tiles = screen.tile_ordering(settings.tile_size, rng=np.random.default_rng(seed))
+    if tile_rng is None:
+        tile_rng = np.random.default_rng(seed)
+    tiles = screen.tile_ordering(settings.tile_size, rng=tile_rng)
     state = _RenderState(np.zeros((height, width, 4), np.uint8), tiles)
 
     spp_total = settings.sample_count
-    passes = [
-        min(SAMPLES_PER_PASS, spp_total - s) for s in range(0, spp_total, SAMPLES_PER_PASS)
-    ]
+    max_pass = samples_per_pass or SAMPLES_PER_PASS
+    passes = [min(max_pass, spp_total - s) for s in range(0, spp_total, max_pass)]
 
     sampler = camera.build_sampler(settings.resolution, device)
     shape = dict(tile_shape=tile_shape, packet_shape=PACKET_SHAPE)

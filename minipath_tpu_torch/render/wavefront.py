@@ -20,10 +20,12 @@ iid.
 :func:`make_pt_renderer_sharded` runs the whole bounce loop per device of a
 mesh, each shard on its own range of pixel blocks.
 
-Not ported: the portable XLA tracers (the port's CPU path is the kernels'
-plain version behind the same :func:`make_pt_tracer` and
-:func:`make_full_tracer`) and the TPU-measured shadow-sort alternatives
-(only ``"pos"`` is here).
+The tracers come in three families with one contract: the lean kernels'
+(:func:`make_pt_tracer`, :func:`make_pt_shadow_tracer`), the full kernels'
+(:func:`make_full_tracer`), and the portable engine's
+(:func:`make_portable_tracer`, :func:`make_portable_shadow_tracer`), which
+share no code with the kernels and serve as an independent engine. On the
+CPU a kernel tracer runs the kernel's plain version.
 """
 
 from __future__ import annotations
@@ -34,11 +36,14 @@ import numpy as np
 import torch
 
 from minipath_tpu_torch.camera import CameraSampler
+from minipath_tpu_torch.geometry.ray import Rays
 from minipath_tpu_torch.parallel import replicate, shard_generators, shard_ranges
 from minipath_tpu_torch.render.frame import gen_frame_rays9, gen_rays9_blocks, unpack_frame
 from minipath_tpu_torch.render.kernels import KernelHits, KernelScene, PTHits, PTScene, trace_packets_pt
 from minipath_tpu_torch.render.kernels_q import QPTScene, QuantizedScene, trace_packets_q, trace_scene
 from minipath_tpu_torch.render.stratify import render_seed, strat1d, strat2d
+from minipath_tpu_torch.render.traversal import finalize_hits, trace_packets
+from minipath_tpu_torch.scene.bvh.build import BvhArrays
 from minipath_tpu_torch.scene.materials import (
     DIELECTRIC,
     EMISSIVE,
@@ -293,6 +298,51 @@ def make_pt_tracer(scene: PTScene | QPTScene, *, stack_size: int, packet_size: i
     return tracer, scene
 
 
+def make_portable_tracer(arrays: BvhArrays, *, stack_size: int, packet_size: int = 256):
+    """Closest-hit tracer over the portable engine
+    (``render/traversal.py``: ``trace_packets`` and ``finalize_hits``), the
+    counterpart of the JAX package's ``make_xla_tracer``. Pure torch on the
+    device of ``arrays`` (a torch :class:`BvhArrays`); it shares no code with
+    the kernels, so it checks them. Each traversal step makes one host sync:
+    give it thousands of rays, not a full-size wavefront.
+
+    Same contract as :func:`make_pt_tracer`: returns ``(tracer, arrays)``
+    with ``tracer(arrays, origin, direction, inv_direction, live_rays=None)
+    -> KernelHits`` over ``(N, 3)`` rays. ``live_rays`` is ignored: every
+    ray is traced. The rays are padded to whole packets of ``packet_size``
+    by repeating the last one. ``overflow`` is the whole trace's count, one
+    element; the engine counts no visits, so ``inner_visits`` and
+    ``leaf_tests`` are one zero each.
+    """
+
+    def tracer(state: BvhArrays, origin, direction, inv_direction, live_rays=None) -> KernelHits:
+        del live_rays  # the engine traces the whole batch in lockstep
+        N = origin.shape[0]
+        rays = _packets(packet_size, origin, direction, inv_direction)
+        res = trace_packets(state, rays, stack_size=stack_size)
+        hits = finalize_hits(state, rays, res)
+        zero = torch.zeros(1, dtype=torch.int32, device=origin.device)
+        return KernelHits(
+            t=res.t.reshape(-1)[:N],
+            tri=res.tri.reshape(-1)[:N],
+            normal=hits.normal.reshape(-1, 3)[:N],
+            material=hits.material.reshape(-1)[:N],
+            overflow=res.overflow.reshape(1),
+            inner_visits=zero,
+            leaf_tests=zero,
+            texture_coords=hits.texture_coords.reshape(-1, 3)[:N],
+        )
+
+    return tracer, arrays
+
+
+def _packets(packet_size: int, origin, direction, inv_direction) -> Rays:
+    """``(N, 3)`` rays as ``(B, packet_size, 3)`` packets, padded as
+    :func:`_pack_rays9` pads them."""
+    r9, _, _ = _pack_rays9(packet_size, None, origin, direction, inv_direction)
+    return Rays(*(r9[:, i : i + 3].transpose(1, 2) for i in (0, 3, 6)))
+
+
 def make_full_tracer(scene: KernelScene | QuantizedScene, *, stack_size: int, packet_size: int = 2048):
     """Closest-hit tracer over the full kernel (K1, or K3 in full mode over
     a :class:`QuantizedScene`) through ``trace_scene``: the counterpart of
@@ -349,6 +399,25 @@ def make_pt_shadow_tracer(scene: PTScene | QPTScene, *, stack_size: int, packet_
         return ph.tri.reshape(Np)[:N] >= 0
 
     return shadow, scene
+
+
+def make_portable_shadow_tracer(arrays: BvhArrays, *, stack_size: int, packet_size: int = 256):
+    """Occlusion tracer over the portable engine, the counterpart of the JAX
+    package's ``make_xla_shadow_tracer``: the contract of
+    :func:`make_pt_shadow_tracer` (``shadow(arrays, origin, segment,
+    live_rays=None) -> (N,) bool``), ``live_rays`` ignored. The engine has
+    no any-hit mode: a segment is occluded where its closest hit lies below
+    ``t = 1 - 1e-5`` in segment units."""
+
+    def shadow(state: BvhArrays, origin, segment, live_rays=None):
+        del live_rays
+        N = origin.shape[0]
+        inv = torch.where(segment == 0.0, torch.full_like(segment, torch.inf), 1.0 / segment)
+        rays = _packets(packet_size, origin, segment, inv)
+        res = trace_packets(state, rays, t_max=_SHADOW_T_MAX, stack_size=stack_size)
+        return res.tri.reshape(-1)[:N] >= 0
+
+    return shadow, arrays
 
 
 class _PathState(NamedTuple):
@@ -455,19 +524,57 @@ def _compact(state: _PathState, fine_direction: bool = True) -> _PathState:
     )
 
 
-def _shadow_batch(cand, origin, segment, wi):
-    """Sort the NEE shadow segments so that candidates form a prefix of
-    coherent packets, position-major (segments converge on the lights, so
-    spatial neighbours run nearly parallel). Non-candidates are parked far
-    outside the scene so a partial boundary packet misses at the root.
-    Returns ``(origin, segment, n_cand, order)`` in sorted order; the
-    caller scatters results back with ``order``."""
-    cell = _position_cells(origin, cand)
-    skey = (_morton16(cell) << 7) | _direction_bin(wi)
-    skey = ((~cand).to(torch.int32) << 27) | skey
+# The keys of the NEE shadow sort. "pos" (position-major) is the default;
+# the others are the JAX package's measured alternatives.
+SHADOW_SORTS = ("pos", "dir", "light", "fromlight")
+
+
+def _check_shadow_sort(shadow_sort: str) -> None:
+    if shadow_sort not in SHADOW_SORTS:
+        raise ValueError(f"shadow_sort must be one of {SHADOW_SORTS}, got {shadow_sort!r}")
+
+
+def shadow_sort_key(cand, origin, wi, light_i, shadow_sort: str = "pos"):
+    """The int32 sort key of the NEE shadow segments: candidates first (bit
+    27 marks the others), then by ``shadow_sort``:
+
+    * ``"pos"``: the Morton cell of the surface point, then the direction
+      bin of ``wi`` (segments converge on the lights, so spatial neighbours
+      run nearly parallel);
+    * ``"dir"``: the direction bin, then the Morton cell;
+    * ``"light"``: the sampled emitter ``light_i``, then the Morton cell;
+    * ``"fromlight"``: the emitter (capped at 255), the direction bin of
+      ``-wi`` and the Morton cell; the caller then launches the reversed
+      interval.
+
+    The cells are a 16^3 grid over the candidates' bounding box."""
+    _check_shadow_sort(shadow_sort)
+    cell = _morton16(_position_cells(origin, cand))
+    if shadow_sort == "dir":
+        skey = (_direction_bin(wi) << 12) | cell
+    elif shadow_sort == "light":
+        skey = (light_i.to(torch.int32) << 12) | cell
+    elif shadow_sort == "fromlight":
+        skey = (torch.clamp(light_i.to(torch.int32), max=255) << 19) | (_direction_bin(-wi) << 12) | cell
+    else:
+        skey = (cell << 7) | _direction_bin(wi)
+    return ((~cand).to(torch.int32) << 27) | skey
+
+
+def _shadow_batch(cand, origin, segment, wi, light_i=None, shadow_sort: str = "pos"):
+    """Sort the NEE shadow segments by :func:`shadow_sort_key` so that
+    candidates form a prefix of coherent packets. Non-candidates are parked
+    far outside the scene so a partial boundary packet misses at the root.
+    Under ``"fromlight"`` each segment is launched reversed, from its light
+    end: the same parametric range [0, 1 - 1e-5] over the same interval, so
+    the same blockers. Returns ``(origin, segment, n_cand, order)`` in
+    sorted order; the caller scatters results back with ``order``."""
+    skey = shadow_sort_key(cand, origin, wi, light_i, shadow_sort)
     n_cand = cand.sum(dtype=torch.int32)
     order = torch.sort(skey).indices
     o_sorted, s_sorted = _gather_rows(order, origin, segment)
+    if shadow_sort == "fromlight":
+        o_sorted, s_sorted = o_sorted + s_sorted, -s_sorted
     cand_s = (torch.arange(cand.shape[0], device=cand.device) < n_cand)[:, None]
     return (
         torch.where(cand_s, o_sorted, torch.full_like(o_sorted, 1e9)),
@@ -505,6 +612,7 @@ def _pt_trace(
     compaction: bool,
     lights: LightTable | None = None,
     shadow_tracer=None,
+    shadow_sort: str = "pos",
     shadow_rr: bool = True,
     nee_max_depth: int | None = None,
     rr_start: int = 3,
@@ -535,8 +643,10 @@ def _pt_trace(
     diffuse and glossy vertices: one light sample and occlusion segment per
     vertex, combined with BSDF sampling by the MIS power heuristic.
     ``nee_max_depth`` caps it to the first K vertices; deeper emitter hits
-    keep full BSDF weight, so the estimator stays unbiased.
+    keep full BSDF weight, so the estimator stays unbiased. ``shadow_sort``
+    orders the occlusion segments (:func:`shadow_sort_key`).
     """
+    _check_shadow_sort(shadow_sort)
     nee = lights is not None and shadow_tracer is not None
     if nee_max_depth is not None and not nee:
         raise ValueError("nee_max_depth given without lights/shadow_tracer")
@@ -627,7 +737,7 @@ def _pt_trace(
                 glossy = (kindv == METAL) & (fuzzv >= GLOSSY_MIN_FUZZ)
                 cand = (diffuse | glossy) & hit
                 sh_o = point + nf * _EPS
-                y, wi, pdf_nee, em_l, cos_y, _ = sample_lights(lights, generator, sh_o, strat=strat_nee)
+                y, wi, pdf_nee, em_l, cos_y, light_i = sample_lights(lights, generator, sh_o, strat=strat_nee)
                 cos_x = torch.sum(wi * nf, dim=-1)
                 cand = cand & (cos_x > 0.0) & (cos_y > 1e-6) & (pdf_nee > 0.0)
                 if shadow_rr:
@@ -645,7 +755,7 @@ def _pt_trace(
                 # a light does not grow with its distance.
                 seg = y - wi * _EPS - sh_o
             with annotate("pt.shadow_trace"):
-                o_s, s_s, n_cand, order = _shadow_batch(cand, sh_o, seg, wi)
+                o_s, s_s, n_cand, order = _shadow_batch(cand, sh_o, seg, wi, light_i, shadow_sort)
                 occ_s = shadow_tracer(tracer_state, o_s, s_s, n_cand)
                 occluded = torch.empty_like(occ_s)
                 occluded[order] = occ_s
@@ -730,6 +840,7 @@ def render_frame_pt(
     compaction: bool = True,
     lights: LightTable | None = None,
     shadow_tracer=None,
+    shadow_sort: str = "pos",
     shadow_rr: bool = True,
     nee_max_depth: int | None = None,
     rr_start: int = 3,
@@ -746,10 +857,15 @@ def render_frame_pt(
     """Path-traced frame: mean RGB and alpha 1, ``(H, W, 4)`` float32 on the
     sampler's device.
 
-    ``(tracer, tracer_state)`` comes from :func:`make_pt_tracer`. Pass
-    ``lights`` (``scene.materials.build_light_table``) together with a
-    ``shadow_tracer`` (:func:`make_pt_shadow_tracer`) for next-event
-    estimation. The frame is traced in chunks of ``samples_per_packet``
+    ``(tracer, tracer_state)`` comes from :func:`make_pt_tracer` (the lean
+    kernel), :func:`make_full_tracer` (the full one) or
+    :func:`make_portable_tracer` (the portable engine). Pass ``lights``
+    (``scene.materials.build_light_table``) together with a
+    ``shadow_tracer`` (:func:`make_pt_shadow_tracer` or
+    :func:`make_portable_shadow_tracer`) for next-event estimation;
+    ``shadow_sort`` (``"pos"``, ``"dir"``, ``"light"`` or ``"fromlight"``,
+    :func:`shadow_sort_key`) orders its occlusion segments and leaves the
+    estimator as it is. The frame is traced in chunks of ``samples_per_packet``
     samples per pixel; one chunk's wavefront is ``ceil(H/16) * ceil(W/16) *
     256 * samples_per_packet`` paths.
 
@@ -768,6 +884,7 @@ def render_frame_pt(
     (luminance, ``(H, W)``). ``clamp`` (opt-in, biased) caps each sample's
     radiance.
     """
+    _check_shadow_sort(shadow_sort)
     dev = sampler.device
     if env is None:
         env = Environment.sky(dev)
@@ -793,8 +910,8 @@ def render_frame_pt(
             width=width, height=height, px_block=px_block, samples=n,
             strat_spp=strat_spp, strat_offset=strat_offset + done, strat_seed=strat_seed,
             tracer=tracer, bounces=bounces, compaction=compaction, lights=lights,
-            shadow_tracer=shadow_tracer, shadow_rr=shadow_rr, nee_max_depth=nee_max_depth,
-            rr_start=rr_start, rr_floor=rr_floor, min_live_frac=min_live_frac,
+            shadow_tracer=shadow_tracer, shadow_sort=shadow_sort, shadow_rr=shadow_rr,
+            nee_max_depth=nee_max_depth, rr_start=rr_start, rr_floor=rr_floor, min_live_frac=min_live_frac,
             with_sumsq=return_variance, clamp=clamp,
         )
         if return_variance:

@@ -260,3 +260,42 @@ def test_sobol_frame_on_card_matches_cpu(cuda, atrium):
     close = ((got - want).abs().amax(dim=-1) <= 1e-3).float().mean().item()
     assert close >= 0.99, close
     torch.testing.assert_close(got[..., :3].mean(), want[..., :3].mean(), rtol=5e-3, atol=0)
+
+
+@pytest.mark.parametrize("layout", ["f32", "quantized"])
+def test_portable_tracers_match_kernels(cuda, atrium, layout):
+    """The portable engine (``make_portable_tracer``, pure torch, no code in
+    common with the kernels) against K2 over the f32 layout and K3 in lean
+    mode over the quantized one, on bounce-1 rays and on shadow segments:
+    the same triangles (K3's quantized vertices may move a hit on at most
+    0.5% of rays), ``t`` within 1e-5 relative plus 1e-6 where the triangle
+    is the same (the engine's torch ops on the card contract multiply-adds
+    that K2, built with ``-fmad=false``, rounds one by one: a last-bit
+    difference of a term of order 1, which a hit 2e-3 from a bounce ray's
+    origin turns into 2e-5 relative) (for K3 ``tools/parity_big.py``'s rule, the 99th percentile of the
+    difference below 5e-3 of ``max(t, 1)``: bounce rays start 1e-3 off a
+    surface, where the quantized vertices' absolute error dominates), the
+    same occlusion (99.5% for K3)."""
+    bvh, _ = atrium
+    scene = bvh.pt_scene(cuda) if layout == "f32" else bvh.quantized_pt_scene(cuda)
+    ss = bvh.recommended_stack_size
+    flat = _bounce_rays(atrium, cuda, B=4, seed=7).transpose(1, 2).reshape(-1, 9)
+    o, d, inv = flat[:, 0:3], flat[:, 3:6], flat[:, 6:9]
+    arrays = bvh.arrays(cuda)
+    want = tw.make_portable_tracer(arrays, stack_size=ss)[0](arrays, o, d, inv)
+    got = tw.make_pt_tracer(scene, stack_size=ss)[0](scene, o, d, inv)
+    same = got.tri == want.tri
+    share = 1.0 if layout == "f32" else 0.995
+    assert same.float().mean().item() >= share
+    hit = same & (want.tri >= 0)
+    assert hit.float().mean().item() > 0.5
+    if layout == "f32":
+        torch.testing.assert_close(got.t[hit], want.t[hit], rtol=1e-5, atol=1e-6)
+    else:
+        rel = (got.t[hit] - want.t[hit]).abs() / want.t[hit].clamp_min(1.0)
+        assert torch.quantile(rel, 0.99).item() < 5e-3
+    seg = d * 4.0
+    occ_want = tw.make_portable_shadow_tracer(arrays, stack_size=ss)[0](arrays, o, seg)
+    occ_got = tw.make_pt_shadow_tracer(scene, stack_size=ss)[0](scene, o, seg)
+    assert (occ_got == occ_want).float().mean().item() >= share
+    assert 0.05 < occ_want.float().mean().item() < 0.95

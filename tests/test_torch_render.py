@@ -212,3 +212,45 @@ def test_cli_cpu_writes_png(tmp_path):
 def test_render_rejects_unsupported_object():
     with pytest.raises(TypeError):
         render(Scene(object()), _camera(Camera), RenderSettings(16, 1, (16, 16)), device="cpu")
+
+
+def test_render_tile_rng_and_samples_per_pass(bvh, monkeypatch):
+    """``tile_rng`` orders the tiles as the JAX ``render()`` orders them for
+    the same NumPy generator, and by default the render seed's generator
+    does. ``samples_per_pass`` caps each pass; the port renders the sample
+    count exactly (5 as 2 + 2 + 1), where the JAX package rounds it up to
+    equal passes (3 x 2)."""
+    from minipath_tpu_torch.render import integrator
+
+    settings = dict(tile_size=16, sample_count=5, resolution=(64, 48))
+    jax_order = []
+    pj = jax_render(JaxScene(JaxTriangleBvh.build(_mesh(jax_procedural))), _camera(JaxCamera),
+                    JaxRenderSettings(**settings), lambda t: jax_order.append(tuple(t.min)), None,
+                    samples_per_pass=2, tile_rng=np.random.default_rng(0), backend="xla")
+    pj.wait()
+    assert pj.spp_effective == 6
+
+    passes = []
+    inner = integrator.render_tile_batch_bvh
+
+    def counted(*a, spp, **kw):
+        passes.append(spp)
+        return inner(*a, spp=spp, **kw)
+
+    monkeypatch.setattr(integrator, "render_tile_batch_bvh", counted)
+
+    def port_order(**kw):
+        order = []
+        p = render(Scene(bvh), _camera(Camera), RenderSettings(**settings), lambda t: order.append(tuple(t.min)),
+                   None, device="cpu", **kw)
+        p.wait()
+        assert p.spp_effective == 5 and (p.image()[..., 3] > 0).any()
+        return order
+
+    got = port_order(samples_per_pass=2, tile_rng=np.random.default_rng(0), seed=3)
+    assert got == jax_order and len(got) == 4 * 3
+    assert passes == [2, 2, 1]  # one dispatch of all 12 tiles
+    passes.clear()
+    assert port_order(seed=0) == jax_order  # tile_rng defaults to default_rng(seed)
+    assert passes == [5]
+    assert port_order(seed=1) != jax_order

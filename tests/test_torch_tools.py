@@ -21,7 +21,16 @@ import pytest
 import torch
 
 from minipath_tpu_torch import bench
-from minipath_tpu_torch.tools import bench_pt, convergence_pt, isolate_qpt, profile_pt_headline
+from minipath_tpu_torch.tools import (
+    bench_pt,
+    bench_quality,
+    convergence_pt,
+    demo_bigscene,
+    demo_hugescene,
+    isolate_qpt,
+    parity_big,
+    profile_pt_headline,
+)
 from minipath_tpu_torch.utils import calibrate
 
 REPO = Path(__file__).resolve().parent.parent
@@ -57,14 +66,65 @@ def _profile_pt_headline(p):
     assert counters["leaf_ops_per_lane"] == 384
 
 
-# Each tool, the JAX-era artifact whose keys it keeps, its tiny sizes, and
-# what must hold among the numbers it derives.
+def _parity_big(p):
+    assert p["triangle_count"] > 10_000 and p["over_f32_budget"] is False and p["gates_failed"] == []
+    for block in (p, p["f32"]):
+        assert block["ray_parity"]["rays"] == block["anyhit_parity"]["segments"] == parity_big.N_RAYS
+        assert block["ray_parity"]["hit_agreement"] > parity_big.HIT_AGREEMENT
+        assert block["anyhit_parity"]["occlusion_agreement"] > parity_big.OCCLUSION_AGREEMENT
+        assert block["frame_parity"]["mean_shift_frac"] < parity_big.MEAN_SHIFT
+    assert p["frame_parity"]["mean_xla"] == p["f32"]["frame_parity"]["mean_xla"] > 0
+
+
+def _bench_quality(q):
+    assert q["engine"].startswith("K2") and q["reference_spp"] == 16 and q["reference_cut"]
+    assert [r["spp"] for r in q["stratification"]] == [2] and [r["avg_spp"] for r in q["adaptive"]] == [10]
+    assert [r["spp"] for r in q["sobol"]["rows"]] == [2] and q["denoise_variance_guided"][0]["rmse_denoised"] > 0
+    assert q["adaptive_concentrated_noise"]["rows"][0]["rmse_uniform"] > 0
+    assert "mse_ratio_uniform_over_adaptive_p2_px16" in q["adaptive_tworooms_concentrated"]["rows"][0]
+    assert q["engine_check"]["other_engine"] == "portable" and q["gates_failed"] == []
+
+
+def _demo(d):
+    assert d["layouts"]["rule_picks"] == "f32" and d["layouts"]["scene_budget_mb"] is None
+    assert d["frames"]["f32"]["coverage"] > 0.99 and d["frames"]["quantized"]["coverage"] > 0.99
+    assert d["engines"]["rays"] == 32 * 16 * demo_bigscene.SMALL_SAMPLES and d["gates_failed"] == []
+
+
+def _demo_bigscene(d):
+    _demo(d)
+    assert d["f32_layout_fits"] is True and d["value"] == d["frames"]["quantized"]["mrays_per_s"]
+
+
+def _demo_hugescene(d):
+    _demo(d)
+    assert d["f32_refused"] is False and d["quantized_vmem_refused"] is False and d["emitters"] > 0
+    assert d["pt_frame"]["mean_rgb"] > 0 and d["pt_frame_f32"]["mean_rgb"] > 0 and d["hbm_vs_xla"] > 0
+
+
+# Each tool, the JAX-era artifact whose keys it keeps (or, where the JAX tool
+# wrote no file, the keys of its JSON line), its tiny sizes, and what must
+# hold among the numbers it derives.
 TOOLS = {
     "bench_pt": (bench_pt, "BENCH_pt.json", ["32", "16", "2"], _bench_pt),
     "convergence_pt": (convergence_pt, "CONVERGENCE.json", ["32", "16", "8"], _convergence_pt),
     "isolate_qpt": (isolate_qpt, "ISOLATE_QPT.json", ["32", "16", "2"], _isolate_qpt),
     "profile_pt_headline": (profile_pt_headline, "PROFILE_PT.json", ["32", "16", "2"], _profile_pt_headline),
+    "parity_big": (parity_big, "PARITY_BIG.json", ["2000", "32", "16", "1"], _parity_big),
+    "bench_quality": (bench_quality, "QUALITY.json", ["32", "16", "16"], _bench_quality),
+    "demo_bigscene": (demo_bigscene, ("metric", "value", "unit", "f32_layout_fits", "quantized_vmem_mb"),
+                      ["2000", "32", "16", "2"], _demo_bigscene),
+    "demo_hugescene": (demo_hugescene, "BENCH_huge.json", ["2000", "32", "16", "2"], _demo_hugescene),
 }
+
+
+# bench_quality's sections made tiny: the smallest atrium and two-rooms
+# scenes, 32x16 frames, one seed and one budget a section.
+QUALITY_TINY = dict(
+    ATRIUM_TRIANGLES=2000, SEEDS=1, STRAT_SPP=(2,), ADAPTIVE_BUDGETS=(10,), DENOISE_SPP=(2,), SOBOL_SPP=(2,),
+    SPHERE_SIZE=(32, 16), SPHERE_BUDGETS=(10,), TWOROOMS_TRIANGLES=2000, TWOROOMS_SIZE=(32, 16),
+    TWOROOMS_BUDGETS=(12,), TWOROOMS_VARIANTS=(("p2_px16", 2, 8, 16),), ENGINE_CHECK_SPP=1,
+)
 
 
 @pytest.fixture(scope="module")
@@ -82,6 +142,9 @@ def tiny(monkeypatch, cache_dir):
     monkeypatch.setattr(convergence_pt, "STRAT_SEEDS", 1)
     monkeypatch.setattr(profile_pt_headline, "TIMED_FRAMES", 1)
     monkeypatch.setattr(profile_pt_headline, "TIMED_CHUNKS", 1)
+    monkeypatch.setattr(demo_bigscene, "TIMED_FRAMES", 1)
+    for name, value in QUALITY_TINY.items():
+        monkeypatch.setattr(bench_quality, name, value)
     monkeypatch.setattr(calibrate, "MATMUL_N", 64)
     monkeypatch.setattr(calibrate, "CHAIN_SHAPE", (8, 128))
     monkeypatch.setattr(calibrate, "CHAIN_ITERS", 16)
@@ -105,7 +168,7 @@ def _root_state():
 @pytest.mark.parametrize("name", list(TOOLS))
 def test_tool_keeps_the_artifact_keys(tiny, tmp_path, name):
     tool, artifact, size, check = TOOLS[name]
-    want = json.loads((REPO / artifact).read_text())
+    want = json.loads((REPO / artifact).read_text()) if isinstance(artifact, str) else dict.fromkeys(artifact)
     before = _root_state()
     out_path = tmp_path / f"{name}.json"
     said = io.StringIO()

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (``minipath_tpu_torch``) on one NVIDIA GPU.
 
-Run from the root of a checkout: ``python3 chip_smoke.py``. Twenty-four phases,
+Run from the root of a checkout: ``python3 chip_smoke.py``. Twenty-six phases,
 each printing its lines as it finishes; any failure raises and the script
 exits non-zero. There is no CPU path: without a CUDA device it fails at once.
 
@@ -173,6 +173,25 @@ phases 22-24 after phase 20, each tool in a subprocess at its full size:
     cache, against their plain versions on 524,288 rays each.
 24. ``tools.bench_quality``: the estimator sections of ``QUALITY.json`` over
     K2, its gate holding K2's frame to the portable engine's.
+
+Phase 25 runs after phase 5, phase 26 after phase 24:
+
+25. ``render(backend="portable")``: the atrium of phases 3-4 at 256x144 @ 4
+    spp, 64-px tiles, in frame and in tile mode, against ``render()`` for the
+    same seed (alpha equal, RGB within one 8-bit level on at most 0.1% of
+    the values), both times, no kernel launched by the portable engine; then
+    the portable frame over a mesh of the card twice, bit for bit.
+26. The sweeps and the tree tools, each ``python -m
+    minipath_tpu_torch.tools.<name> --device cuda --out ...`` in a
+    subprocess: ``sweep_rr2`` (roulette start and floor, the tail cutoff),
+    ``sweep_pt17`` and ``sweep_pt19`` (the NEE depth cap on the atrium and on
+    the two rooms), ``sobol_cost``, ``sweep_adaptive``, ``perf_leaf`` (K1
+    over five leaf sizes), ``tree_quality`` and ``sweep_sbvh`` (K2 over the
+    SBVH and the binned-SAH trees), at the JAX tools' sizes but
+    ``sweep_sbvh``, cut to 60,000 triangles (its NumPy SBVH build takes
+    minutes at 250k). Each must exit 0 (each enforces its gates: unbiased
+    means within 1% of their baseline; two trees agreeing on hit or miss and
+    on t) and print the keys of its JAX-era artifact and of its rows.
 
 ``python3 chip_smoke.py --kernels-only`` runs phases 1, 2, 3, 6 and 10 alone:
 the traversal kernels against their plain versions, with their times, bounds
@@ -1847,26 +1866,54 @@ TOOL_RUNS = (
 BENCH_PT_DELTA, TOOL_TIMEOUT_S = 0.01, 600
 
 
-def run_tool(name, artifact, args=(), timeout=TOOL_TIMEOUT_S):
+class ToolRun:
     """``python -m minipath_tpu_torch.tools.<name> --device cuda --out ...``
-    in a subprocess: it must exit 0, print one JSON line with the keys of
-    ``artifact`` (a file of the repository, or a tuple of keys) and write
-    the same JSON. Returns ``(JSON, seconds)``."""
-    with tempfile.TemporaryDirectory() as tmp:
-        out = Path(tmp) / f"{name}.json"
-        cmd = [sys.executable, "-m", f"minipath_tpu_torch.tools.{name}", "--device", "cuda", "--out", str(out),
+    started in a subprocess, its output going to files of a temporary
+    directory; :meth:`result` waits for it."""
+
+    def __init__(self, name, args=()):
+        self.name = name
+        self._tmp = tempfile.TemporaryDirectory()
+        tmp = Path(self._tmp.name)
+        self.out = tmp / f"{name}.json"
+        self._streams = open(tmp / "stdout", "w+"), open(tmp / "stderr", "w+")
+        cmd = [sys.executable, "-m", f"minipath_tpu_torch.tools.{name}", "--device", "cuda", "--out", str(self.out),
                *args]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=timeout)
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0 or not out.exists():
-            raise AssertionError(f"{name} exited {proc.returncode}:\n{proc.stdout[-3000:]}\n{proc.stderr[-4000:]}")
-        got = json.loads(proc.stdout.splitlines()[-1])
-        want = json.loads((REPO / artifact).read_text()) if isinstance(artifact, str) else dict.fromkeys(artifact)
-        missing = set(want) - set(got)
-        if missing or json.loads(out.read_text()) != got:
-            raise AssertionError(f"{name}: keys of {artifact} missing {sorted(missing)}, or --out differs")
-    return got, seconds
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(cmd, cwd=REPO, stdout=self._streams[0], stderr=self._streams[1], text=True)
+
+    def result(self, artifact, timeout=TOOL_TIMEOUT_S):
+        """The tool must exit 0, print one JSON line with the keys of
+        ``artifact`` (a file of the repository, or a tuple of keys) and write
+        the same JSON. Returns ``(JSON, seconds)``."""
+        try:
+            rc = self.proc.wait(timeout=timeout)
+            seconds = time.perf_counter() - self.t0
+            stdout, stderr = (f.seek(0) or f.read() for f in self._streams)
+            if rc != 0 or not self.out.exists():
+                raise AssertionError(f"{self.name} exited {rc}:\n{stdout[-3000:]}\n{stderr[-4000:]}")
+            got = json.loads(stdout.splitlines()[-1])
+            want = json.loads((REPO / artifact).read_text()) if isinstance(artifact, str) else dict.fromkeys(artifact)
+            missing = set(want) - set(got)
+            if missing or json.loads(self.out.read_text()) != got:
+                raise AssertionError(f"{self.name}: keys of {artifact} missing {sorted(missing)}, or --out differs")
+        finally:
+            self.close()
+        return got, seconds
+
+    def close(self):
+        """Kills the tool if it still runs; removes its files."""
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        for f in self._streams:
+            f.close()
+        self._tmp.cleanup()
+
+
+def run_tool(name, artifact, args=(), timeout=TOOL_TIMEOUT_S):
+    """:class:`ToolRun` of ``name`` and its result."""
+    return ToolRun(name, args).result(artifact, timeout)
 
 
 def phase_tools(smi):
@@ -2118,6 +2165,125 @@ def phase_quality(smi):
     log("24 quality", f"bench_quality on {smi}: exit 0 in {seconds:.1f} s, keys of QUALITY.json present | "
         f"{json.dumps(head)}")
     return got["kernel_launches"]
+
+
+# Phase 25: render(backend="portable") against render() on the atrium, at a
+# size the portable engine (one host sync a traversal step) renders in about
+# a second. The two engines share no traversal code and agree on every
+# triangle, but torch's CUDA ops contract the multiply-adds that K1
+# (-fmad=false) rounds one by one: an RGB value may move by one 8-bit level,
+# on at most PORTABLE_RGB_SHARE of the values; alpha must be equal.
+PORTABLE_SIZE, PORTABLE_SPP, PORTABLE_SEED = (256, 144), 4, 25
+PORTABLE_RGB_SHARE = 1e-3
+
+
+def image_agreement(got: np.ndarray, want: np.ndarray) -> tuple[str, bool]:
+    """Two uint8 RGBA images of one seed from two engines: ``(text, ok)``
+    with ok where alpha is equal and RGB differs by at most one level on at
+    most :data:`PORTABLE_RGB_SHARE` of the values."""
+    diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    rgb_share = float((diff[..., :3] > 0).mean())
+    ok = np.array_equal(got[..., 3], want[..., 3]) and int(diff[..., :3].max()) <= 1 and rgb_share <= PORTABLE_RGB_SHARE
+    return (f"alpha equal {np.array_equal(got[..., 3], want[..., 3])}, RGB max diff {int(diff[..., :3].max())} levels "
+            f"on {rgb_share:.6f} of the values, alpha coverage {float((want[..., 3] > 0).mean()):.4f}"), ok
+
+
+def phase_portable(bvh, device, smi):
+    """Phase 25: ``render(backend="portable")`` of the atrium against
+    ``render()`` for the same seed, in frame and in tile mode, with both
+    times and the launches (the portable engine launches no kernel); then
+    the portable frame over a mesh of the card twice, bit for bit."""
+    from minipath_tpu_torch import RenderSettings, Scene, render
+
+    t_phase = time.perf_counter()
+    settings = RenderSettings(TILE, PORTABLE_SPP, PORTABLE_SIZE)
+
+    def run(backend, callback=None, mesh=None):
+        reset_launches()
+        p = render(Scene(bvh), bench_camera(), settings, finished_tile_callback=callback,
+                   device=None if mesh else device, seed=PORTABLE_SEED, backend=backend, mesh=mesh)
+        p.wait()
+        return p.image(), p.elapsed(), {k: v for k, v in kernel_launch_counts().items() if v}
+
+    images = {}
+    for mode, callback in (("frame", None), ("tile", lambda tile, snapshot: None)):
+        want, s_kernel, launches_kernel = run("kernel", callback)
+        got, s_portable, launches_portable = run("portable", callback)
+        images[mode] = got
+        text, ok = image_agreement(got, want)
+        text = (f"{mode} mode, {PORTABLE_SIZE[0]}x{PORTABLE_SIZE[1]} @ {PORTABLE_SPP} spp, 64-px tiles, on {smi}: "
+                f"portable {s_portable:.3f} s (launches {launches_portable}) against kernel {s_kernel:.4f} s "
+                f"(launches {launches_kernel}) | {text}")
+        if not ok or launches_portable or not launches_kernel.get("K1"):
+            raise AssertionError(f"render(backend='portable') disagrees with render(): {text}")
+        log("25 portable", text)
+    meshed, seconds, _ = run("portable", mesh=(device, device))
+    if not np.array_equal(meshed, images["frame"]):
+        raise AssertionError("render(backend='portable', mesh=) differs from the meshless portable frame")
+    log("25 portable", f"over a mesh of the card twice: equal to the meshless frame bit for bit, {seconds:.3f} s")
+    log("25 portable", f"phase time {time.perf_counter() - t_phase:.1f} s")
+
+
+# Phase 26: the sweeps and the tree tools, each in a subprocess at the JAX
+# tool's size, except sweep_sbvh: its NumPy SBVH build takes minutes at 250k
+# triangles, so it runs on SBVH_TRIANGLES here. Each: the keys its line must
+# have, and where the JAX-era artifact has rows, (file, path to the rows)
+# whose keys its rows must have.
+SBVH_TRIANGLES = 60_000
+# Their time goes to NumPy builds on the host (the Python and SBVH trees):
+# they run beside the others, and their device times overlap other tools'.
+BESIDE = ("tree_quality", "sweep_sbvh")
+SOBOL_COST_KEYS = ("stratified_s_per_frame", "stratified_frame_mean", "sobol_s_per_frame", "sobol_frame_mean",
+                   "cost_ratio_sobol_over_stratified", "workload")
+SWEEP_TOOLS = (
+    ("sweep_rr2", ("nee_capped",), ("SWEEP_RR.json", ("nee_capped", "rows")), []),
+    ("sweep_pt17", "SWEEP_NEE_CAP2.json", ("SWEEP_NEE_CAP2.json", ("rows",)), []),
+    ("sweep_pt19", "SWEEP_NEE_CAP2.json", ("SWEEP_NEE_CAP2.json", ("rows",)), []),
+    ("sobol_cost", SOBOL_COST_KEYS, None, []),
+    ("sweep_adaptive", ("reference_spp", "adaptive"), ("QUALITY.json", ("adaptive",)), []),
+    ("perf_leaf", ("rays", "rows"), None, []),
+    ("tree_quality", ("rows",), None, []),
+    ("sweep_sbvh", ("trees", "rows"), None, [str(SBVH_TRIANGLES)]),
+)
+
+
+def dig(obj, path):
+    for key in path:
+        obj = obj[key]
+    return obj
+
+
+def phase_sweeps(smi):
+    """Phase 26: each of :data:`SWEEP_TOOLS` in a subprocess: exit 0 (each
+    enforces its own gates), the keys of its artifact and of its rows.
+    Returns the tools' kernel launches by tool."""
+    t_phase = time.perf_counter()
+    launches = {}
+    beside = {name: ToolRun(name, args) for name, _, _, args in SWEEP_TOOLS if name in BESIDE}
+    try:
+        for name, keys, rows, args in SWEEP_TOOLS:
+            got, seconds = beside[name].result(keys) if name in beside else run_tool(name, keys, args)
+            check_sweep(name, got, rows)
+            head = {k: v for k, v in got.items() if k not in ("device", "kernel_launches", "gates_failed")}
+            log("26 sweeps", f"{name} {' '.join(args)} on {smi}: exit 0 in {seconds:.1f} s"
+                f"{' (beside the others)' if name in beside else ''} | {json.dumps(head)}")
+            launches[name] = got.get("kernel_launches", {})
+    finally:
+        for run in beside.values():
+            run.close()
+    log("26 sweeps", f"phase time {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def check_sweep(name, got, rows):
+    """A sweep tool's rows have the keys of its artifact's; no gate failed."""
+    if rows is not None:
+        artifact, path = rows
+        missing = set(dig(json.loads((REPO / artifact).read_text()), path)[0]) - set(dig(got, path)[0])
+        if missing:
+            raise AssertionError(f"{name}: its rows lack {sorted(missing)} of {artifact}'s")
+    if got["gates_failed"]:
+        raise AssertionError(f"{name} fails its gates: {got['gates_failed']}")
 
 
 # Phase 13: the chain kernels' checks and shapes. K4 at the device-health
@@ -2377,6 +2543,7 @@ def main() -> int:
                                                   ("the bench's native-built tree, leaves <= 24",
                                                    native_tree(leaf_max=24))))
     phase_cli()
+    phase_portable(bvh, device, smi)
 
     pt_bvh, dicts = build_pt_atrium()
     parts = pt_parts(pt_bvh, dicts, device)
@@ -2416,6 +2583,7 @@ def main() -> int:
     demo_launches, huge = phase_demos(device, smi)
     by_path.update(demo_launches)
     by_path["bench_quality"] = phase_quality(smi)
+    by_path.update(phase_sweeps(smi))
 
     def entry(name, source, replaces, launches, results, key, **extra):
         r = results[key]
@@ -2430,7 +2598,7 @@ def main() -> int:
         }
 
     def paths(kernel):
-        """Phases 17-19 and 21-24's launches of one kernel, by path (the
+        """Phases 17-19, 21-24 and 26's launches of one kernel, by path (the
         tools' as each subprocess counted them)."""
         out = {path: sum(n for k, n in counts.items() if k.split()[0] == kernel) for path, counts in by_path.items()}
         return {path: n for path, n in out.items() if n}

@@ -6,8 +6,10 @@ as grayscale ``|ray_dir . normal|`` with alpha 1, misses as transparent
 black. Port of the batched-tile renderers
 ``minipath_tpu/render/integrator.py::render_tile_batch_bvh_pallas`` and
 ``render_tile_batch_sphere`` (the analytic sphere, which launches no
-kernel); they operate on whole batches of tiles, each cut into pixel
-packets.
+kernel), and of the portable one, ``render_tile_sum_bvh`` with
+``render_tile_batch_bvh_xla`` (:func:`render_tile_batch_bvh_portable`,
+over ``render/traversal.py``); they operate on whole batches of tiles, each
+cut into pixel packets.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ from minipath_tpu_torch.render.frame import CAMERA_SALT, shade_parity_sum
 from minipath_tpu_torch.render.hit import HitRecords
 from minipath_tpu_torch.render.kernels import KernelScene, rays_to_rays9
 from minipath_tpu_torch.render.kernels_q import QuantizedScene, trace_scene
+from minipath_tpu_torch.render.traversal import intersect_bvh
+from minipath_tpu_torch.scene.bvh.build import BvhArrays
 
 
 def shade_normal_dot(rays: Rays, hits: HitRecords) -> torch.Tensor:
@@ -167,4 +171,42 @@ def render_tile_batch_bvh(
         return shade_parity_sum(rays9, trace_scene(scene, rays9, stack_size=stack_size), spp)  # (packets, bp, 4)
 
     rgba_sum = trace_shade(rays9, scene) if mesh is None else map_shards(trace_shade, rays9, mesh, scene)
+    return unpack_tile(rgba_sum.reshape(K, nb, bp, 4), tile_shape, packet_shape)
+
+
+def render_tile_batch_bvh_portable(
+    arrays: BvhArrays,
+    sampler: CameraSampler,
+    tile_origins: torch.Tensor,  # (K, 2) f32 pixel origins
+    generator: torch.Generator,
+    strat_seed: int,
+    *,
+    tile_shape,
+    packet_shape,
+    spp: int,
+    stack_size: int,
+    mesh=None,
+) -> torch.Tensor:
+    """:func:`render_tile_batch_bvh` over the portable engine: the same rays
+    (the same generator draws and strata), traced by
+    ``render/traversal.py::intersect_bvh`` over the f32 tree ``arrays`` in
+    packets of one sample of one pixel block, shaded by
+    :func:`shade_normal_dot`. It shares no traversal code with the kernels,
+    so it checks them; each traversal step makes one host sync. Returns the
+    ``(K, th, tw, 4)`` RGBA sums. With a ``mesh``, ``arrays`` is a list of
+    the tree's replicas parallel to it, and each device traces a contiguous
+    share of the packets: the image is the same bit for bit."""
+    K = tile_origins.shape[0]
+    rays = tile_batch_rays(
+        sampler, tile_origins, generator, strat_seed,
+        tile_shape=tile_shape, packet_shape=packet_shape, spp=spp,
+    )
+    nb, bp = rays.origin.shape[0] // K, rays.origin.shape[1] // spp
+
+    def trace_shade(rays, arrays):
+        packets = Rays(*(f.reshape(-1, bp, 3) for f in rays))  # (packets * spp, bp, 3), sample-major
+        rgba = shade_normal_dot(packets, intersect_bvh(arrays, packets, stack_size=stack_size))
+        return rgba.reshape(-1, spp, bp, 4).sum(dim=1)
+
+    rgba_sum = trace_shade(rays, arrays) if mesh is None else map_shards(trace_shade, rays, mesh, arrays)
     return unpack_tile(rgba_sum.reshape(K, nb, bp, 4), tile_shape, packet_shape)

@@ -11,7 +11,8 @@ exists to enqueue work and stream results back progressively.
 ``is_finished()``, ``elapsed()``, ``abort()`` (cooperative: running tiles
 finish, new ones don't start), ``wait()``, ``image()``.
 
-The device is explicit: there is no silent switch to another engine. The
+The device is explicit: there is no silent switch to another engine;
+``render(backend="portable")`` asks for the portable one by name. The
 sample count is rendered exactly, in passes of at most
 :data:`SAMPLES_PER_PASS` samples or ``render(samples_per_pass=)``
 (``spp_effective`` reports it), where the JAX package rounds it up to
@@ -43,6 +44,8 @@ PACKET_SHAPE = (16, 16)
 MAX_RAYS_PER_DISPATCH = 1 << 25
 # Samples per pixel traced in one pass at most.
 SAMPLES_PER_PASS = 32
+# The engines that trace a TriangleBvh (render(backend=)).
+BACKENDS = ("kernel", "portable")
 
 
 def _finalize_u8(acc: torch.Tensor, spp: int) -> torch.Tensor:
@@ -154,6 +157,7 @@ def render(
     seed: int = 0,
     samples_per_pass: int | None = None,
     tile_rng=None,
+    backend: str = "kernel",
     mesh=None,
 ) -> RenderProgress:
     """Start rendering on ``device`` (default ``cuda``); returns immediately
@@ -161,6 +165,15 @@ def render(
     (traced by K1, or K3 over the quantized layout) or the analytic
     ``Sphere`` (intersected in closed form, no kernel); anything else raises
     ``TypeError``.
+
+    ``backend`` picks the engine that traces a ``TriangleBvh``:
+    ``"kernel"`` (K1, or K3 over the quantized layout) or ``"portable"``
+    (the portable engine of ``render/traversal.py`` over the f32 tree, one
+    host sync a traversal step: an independent check of the kernels' image,
+    not a render path). For one seed both trace the same rays. A ``Sphere``
+    ignores it; any other value raises ``ValueError``. The JAX package's
+    ``"auto"`` has no counterpart: the device is explicit and nothing falls
+    back.
 
     ``mesh``: an optional sequence of devices
     (``parallel.make_device_mesh``; it may repeat one). The render then runs
@@ -186,6 +199,8 @@ def render(
     obj = scene.object
     if not isinstance(obj, (TriangleBvh, Sphere)):
         raise TypeError(f"Unsupported scene object: {type(obj)!r}")
+    if backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r}: expected one of {BACKENDS}")
     if mesh is not None:
         mesh = tuple(torch.device(d) for d in mesh)
         if device is not None and torch.device(device) not in (mesh[0], torch.device(mesh[0].type)):
@@ -215,14 +230,16 @@ def render(
     shape = dict(tile_shape=tile_shape, packet_shape=PACKET_SHAPE)
     if isinstance(obj, TriangleBvh):
         stack_size = obj.recommended_stack_size
-        kernel_scene = obj.kernel_scene(device)
+        if backend == "portable":
+            tree, batch_fn = obj.arrays(device), integrator.render_tile_batch_bvh_portable
+        else:
+            tree, batch_fn = obj.kernel_scene(device), integrator.render_tile_batch_bvh
         if mesh is not None:
-            kernel_scene = replicate(kernel_scene, mesh)
+            tree = replicate(tree, mesh)
 
         def tile_batch(origins, spp, strat_seed):
-            return integrator.render_tile_batch_bvh(
-                kernel_scene, sampler, origins, generator, strat_seed, spp=spp, stack_size=stack_size, mesh=mesh,
-                **shape,
+            return batch_fn(
+                tree, sampler, origins, generator, strat_seed, spp=spp, stack_size=stack_size, mesh=mesh, **shape
             )
 
     else:

@@ -254,3 +254,87 @@ def test_render_tile_rng_and_samples_per_pass(bvh, monkeypatch):
     assert port_order(seed=0) == jax_order  # tile_rng defaults to default_rng(seed)
     assert passes == [5]
     assert port_order(seed=1) != jax_order
+
+
+def _rgba_agree(got, want, rgb_share=1e-3):
+    """Two engines' uint8 images of one seed: alpha equal, RGB within one
+    8-bit level on at most ``rgb_share`` of the values (the normals of the
+    two engines differ in the last bits)."""
+    diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    assert np.array_equal(got[..., 3], want[..., 3])
+    assert diff[..., :3].max() <= 1
+    assert (diff[..., :3] > 0).mean() <= rgb_share
+
+
+@pytest.fixture(scope="module")
+def atrium_bvh():
+    return TriangleBvh.build(procedural.make_atrium(0))
+
+
+@pytest.mark.parametrize("mode", ["frame", "tile"])
+def test_render_portable_matches_kernel(atrium_bvh, mode):
+    """``render(backend="portable")`` traces the rays ``render()`` traces
+    (the same draws and strata) with the portable engine: the same image up
+    to one level, in frame and in tile mode."""
+    camera = Camera().look_at((-16.0, 4.0, 0.0), (10.0, 3.0, 0.5)).f_number(8.0).sensor_width(36e-3)
+    settings = RenderSettings(tile_size=16, sample_count=4, resolution=(32, 16))
+    callback = None if mode == "frame" else (lambda tile, snapshot: None)
+    images = {}
+    for backend in ("kernel", "portable"):
+        p = render(Scene(atrium_bvh), camera, settings, finished_tile_callback=callback, device="cpu", seed=5,
+                   backend=backend)
+        p.wait()
+        assert p.progress().finished == p.progress().total == 2
+        images[backend] = p.image()
+    _rgba_agree(images["portable"], images["kernel"])
+    assert (images["portable"][..., 3] > 0).mean() > 0.9
+
+
+def test_render_portable_over_a_mesh_is_bit_for_bit(bvh):
+    """Each shard traces whole packets, one by one: a two-device mesh gives
+    the meshless image bit for bit."""
+    settings = RenderSettings(tile_size=16, sample_count=3, resolution=(48, 32))
+    images = []
+    for mesh in (None, ("cpu",) * 2):
+        p = render(Scene(bvh), _camera(Camera), settings, device=None if mesh else "cpu", seed=11,
+                   backend="portable", mesh=mesh)
+        p.wait()
+        images.append(p.image())
+    assert np.array_equal(images[0], images[1])
+    assert (images[0][..., 3] > 0).any()
+
+
+def test_render_portable_matches_jax_xla_statistically(bvh):
+    """Against the JAX ``render(backend="xla")``, whose portable engine draws
+    other random samples: alpha coverage within 1% and mean value within 2%
+    at 16 spp."""
+    settings = dict(tile_size=16, sample_count=16, resolution=(64, 48))
+    pj = jax_render(JaxScene(JaxTriangleBvh.build(_mesh(jax_procedural))), _camera(JaxCamera),
+                    JaxRenderSettings(**settings), backend="xla")
+    pt = render(Scene(bvh), _camera(Camera), RenderSettings(**settings), device="cpu", seed=7, backend="portable")
+    pj.wait()
+    pt.wait()
+    want, got = pj.image().astype(np.float64) / 255, pt.image().astype(np.float64) / 255
+    assert abs(got[..., 3].mean() - want[..., 3].mean()) <= 0.01
+    assert abs(got[..., 0].mean() - want[..., 0].mean()) <= 0.02 * want[..., 0].mean()
+    assert want[..., 3].mean() > 0.05
+
+
+@pytest.mark.parametrize("backend", ["auto", "xla", "pallas", "Portable", ""])
+def test_render_rejects_an_unknown_backend(bvh, backend):
+    """Only "kernel" and "portable": the JAX package's "auto" has no
+    counterpart, and its "xla" and "pallas" are named otherwise here."""
+    with pytest.raises(ValueError, match="kernel"):
+        render(Scene(bvh), _camera(Camera), RenderSettings(16, 1, (16, 16)), device="cpu", backend=backend)
+
+
+def test_sphere_ignores_backend():
+    from minipath_tpu_torch import Sphere
+
+    settings = RenderSettings(tile_size=16, sample_count=2, resolution=(32, 24))
+    images = []
+    for backend in ("kernel", "portable"):
+        p = render(Scene(Sphere()), _camera(Camera), settings, device="cpu", seed=3, backend=backend)
+        p.wait()
+        images.append(p.image())
+    assert np.array_equal(images[0], images[1]) and (images[0][..., 3] > 0).any()

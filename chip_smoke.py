@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (``minipath_tpu_torch``) on one NVIDIA GPU.
 
-Run from the root of a checkout: ``python3 chip_smoke.py``. Twenty-six phases,
+Run from the root of a checkout: ``python3 chip_smoke.py``. Twenty-eight phases,
 each printing its lines as it finishes; any failure raises and the script
 exits non-zero. There is no CPU path: without a CUDA device it fails at once.
 
@@ -193,6 +193,28 @@ Phase 25 runs after phase 5, phase 26 after phase 24:
     means within 1% of their baseline; two trees agreeing on hit or miss and
     on t) and print the keys of its JAX-era artifact and of its rows.
 
+Phases 27 and 28 run after phase 26:
+
+27. ``render()``'s frame mode at tile sizes off the packet's 16 pixels, on
+    the atrium of phases 3-4: at ``tile_size`` 40, 320x320 and 1920x1080 @ 4
+    spp, and at 24, 640x360 @ 8 spp, two frame-mode renders with one seed
+    (equal bit for bit), their image against their own tiles written back
+    at their extents on the host (equal bit for bit), and tile mode once:
+    equal bit for bit at 64 tiles (320x320), by mean and coverage past that
+    (tile mode draws its jitter in dispatches of 64 tiles). Then the
+    1920x1080 @ 64 spp frame at 64-px tiles, warm, beside PERF.md §5's
+    figure, and the placement alone on one batch of that frame, against the
+    placement before the repair.
+28. The port as it is installed: a wheel of this checkout built offline
+    (``pip wheel --no-build-isolation``; fails where the interpreter has no
+    setuptools), installed with ``--target`` into a temporary directory, its
+    package made read-only; in a subprocess that sees only the installation,
+    with its working directory, ``HOME`` and ``XDG_CACHE_HOME`` temporary:
+    ``traverse.cu``, ``traverse_q.cu``, ``chain.cu`` and the native library
+    built (each into the user's cache, each build's seconds printed), K1, K3
+    (full) and K4 launched once each against their plain versions, and the
+    native tree of ``make_atrium(0)``, held to the checkout's bit for bit.
+
 ``python3 chip_smoke.py --kernels-only`` runs phases 1, 2, 3, 6 and 10 alone:
 the traversal kernels against their plain versions, with their times, bounds
 and requested bytes (about two minutes, most of it the three scene builds).
@@ -213,6 +235,7 @@ import argparse
 import functools
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -2440,6 +2463,260 @@ def phase_bench(smi):
         f"artifact keys {list(artifact)}")
 
 
+# Phase 27: render()'s frame mode at tile sizes off the packet's 16 pixels, as
+# (tile_size, (width, height), spp). Tile mode draws its jitter in dispatches
+# of 64 tiles and frame mode in dispatches of up to 1024, so the two images are
+# equal bit for bit only where a frame has at most 64 tiles (the 320x320 case);
+# past that, tile mode's image is held to frame mode's by mean and coverage,
+# and frame mode's to its own tiles written back at their extents on the host.
+P3_CASES = ((40, (320, 320), 4), (40, (WIDTH, HEIGHT), 4), (24, (640, 360), 8))
+P3_SEED, P3_TIMED_FRAMES = 27, 3
+# PERF.md §5: the 1920x1080 @ 64 spp frame through render() at 64-px tiles,
+# warm seconds before the placement's repair (NVIDIA H100 80GB HBM3, 700 W).
+P3_PARENT_FRAME_S = 0.192
+
+
+def parent_placement(frame, tiles_u8, origins):
+    """Frame mode's placement before the repair, kept to be timed beside the
+    repaired one: each tile's whole packet-rounded block at its origin."""
+    _, th, tw, _ = tiles_u8.shape
+    yy = origins[:, 1].long()[:, None, None] + torch.arange(th, device=frame.device)[None, :, None]
+    xx = origins[:, 0].long()[:, None, None] + torch.arange(tw, device=frame.device)[None, None, :]
+    frame[yy, xx] = tiles_u8
+
+
+def tiles_on_host(tiles, blocks, width, height):
+    """Each tile's block cropped to its own extent and written at its place,
+    as tile mode writes a tile back."""
+    img = np.zeros((height, width, 4), np.uint8)
+    for tile, block in zip(tiles, blocks):
+        (x0, y0), (x1, y1) = tile.min, tile.max
+        img[y0:y1, x0:x1] = block[: y1 - y0, : x1 - x0]
+    return img
+
+
+def phase_p3(bvh, device, smi):
+    """Phase 27: frame mode twice with one seed (equal bit for bit), its
+    image against its own tiles placed on the host, tile mode once; the
+    64-px frame's warm seconds beside §5's; the repaired placement's time
+    beside the parent's on one batch of that frame."""
+    from minipath_tpu_torch import RenderSettings, Scene, render
+    from minipath_tpu_torch.render import machinery
+    from minipath_tpu_torch.screen_block import ScreenBlock
+
+    t_phase = time.perf_counter()
+    finalize = machinery._finalize_u8
+
+    def image(settings, callback=None, record=None):
+        if record is not None:
+            machinery._finalize_u8 = lambda acc, spp: record.append(finalize(acc, spp)) or record[-1]
+        try:
+            p = render(Scene(bvh), bench_camera(), settings, finished_tile_callback=callback, device=device,
+                       seed=P3_SEED)
+            p.wait()
+        finally:
+            machinery._finalize_u8 = finalize
+        return p.image(), p.elapsed()
+
+    for tile_size, (w, h), spp in P3_CASES:
+        settings = RenderSettings(tile_size, spp, (w, h))
+        blocks = []
+        first, s_first = image(settings, record=blocks)
+        second, s_second = image(settings)
+        tiled, s_tiled = image(settings, lambda tile, snapshot: None)
+        tiles = ScreenBlock.with_size((0, 0), (w, h)).tile_ordering(tile_size, rng=np.random.default_rng(P3_SEED))
+        host = tiles_on_host(tiles, torch.cat(blocks).cpu().numpy(), w, h)
+        same, as_host, as_tiled = (np.array_equal(first, x) for x in (second, host, tiled))
+        means = [float(x[..., 0].mean()) / 255 for x in (first, tiled)]
+        cover = [float((x[..., 3] > 0).mean()) for x in (first, tiled)]
+        text = (f"{w}x{h} @ {spp} spp, tile_size {tile_size} ({len(tiles)} tiles, traced at "
+                f"{machinery._round_up(tile_size, 16)} px) on {smi}: two frame-mode renders equal {same}, equal to "
+                f"their tiles placed on the host {as_host}, to tile mode {as_tiled} | mean value {means[0]:.4f} "
+                f"tile mode {means[1]:.4f}, coverage {cover[0]:.4f} / {cover[1]:.4f} | frame {s_first:.3f} "
+                f"{s_second:.3f} s, tile mode {s_tiled:.3f} s")
+        stat_ok = abs(means[1] - means[0]) <= STAT_RTOL * means[0] and abs(cover[1] - cover[0]) <= STAT_RTOL
+        if not (same and as_host and cover[0] > 0 and (as_tiled if len(tiles) <= 64 else stat_ok)):
+            raise AssertionError(f"frame mode off the packet size: {text}")
+        log("27 p3", text)
+
+    settings = RenderSettings(TILE, SPP, (WIDTH, HEIGHT))
+    image(settings)
+    warm = [image(settings)[1] for _ in range(P3_TIMED_FRAMES)]
+    log("27 p3", f"frame mode at 64-px tiles, {WIDTH}x{HEIGHT} @ {SPP} spp on {smi}: warm "
+        f"{' '.join(f'{s:.4f}' for s in warm)} s, against {P3_PARENT_FRAME_S} s before the repair (PERF.md §5)")
+
+    # One batch of that frame, its 256 tiles of 64x64 px: the placement
+    # alone, repaired against the parent's, on one frame buffer.
+    k = machinery.MAX_RAYS_PER_DISPATCH // (TILE * TILE * machinery.SAMPLES_PER_PASS)
+    tiles = ScreenBlock.with_size((0, 0), (WIDTH, HEIGHT)).tile_ordering(TILE, rng=np.random.default_rng(0))[:k]
+    blocks = torch.randint(0, 256, (len(tiles), TILE, TILE, 4), dtype=torch.uint8, device=device)
+    origins = torch.tensor(np.array([t.min for t in tiles], np.float32), device=device)
+    frame = torch.zeros((HEIGHT + 1, WIDTH + 1, 4), dtype=torch.uint8, device=device)
+    padded = torch.zeros((HEIGHT + TILE, WIDTH + TILE, 4), dtype=torch.uint8, device=device)
+    repaired_ms = cuda_ms(lambda: machinery.place_tiles(frame, blocks, origins, TILE), 50)
+    parent_ms = cuda_ms(lambda: parent_placement(padded, blocks, origins), 50)
+    if not torch.equal(frame[:HEIGHT, :WIDTH], padded[:HEIGHT, :WIDTH]):
+        raise AssertionError("at 64-px tiles the repaired placement differs from the parent's")
+    log("27 p3", f"placement of {len(tiles)} tiles of {TILE}x{TILE} px: repaired {repaired_ms:.4f} ms, before the "
+        f"repair {parent_ms:.4f} ms; equal images (CUDA events, {smi})")
+    log("27 p3", f"phase time {time.perf_counter() - t_phase:.1f} s")
+
+
+# Phase 28: the port installed from a wheel, its package read-only, in a
+# subprocess that sees only the installation (and the interpreter's own
+# packages). The rays its traversal kernels are held at, on make_atrium(0):
+# the central 128x128 pixels of the benchmark view, one sample each, and as
+# many rays inside the scene's box in uniform directions; K4 at the probe's
+# (512, 128) for 64 iterations.
+INSTALL_TIMEOUT_S, INSTALL_K4_ITERS = 600, 64
+# Run by the installation's subprocess: loads this script by its path (so
+# that nothing of the checkout lands on sys.path) and calls installed_check.
+INSTALLED_LOADER = """
+import importlib.util, sys
+spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
+smoke = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(smoke)
+sys.exit(smoke.installed_check(*sys.argv[2:]))
+"""
+
+
+def installed_check(site, out) -> int:
+    """Phase 28's subprocess: builds K1-K5's three libraries and the native
+    library from the installed package's sources, checks that each lands in
+    the user's cache, launches K1, K3 (full) and K4 once each against their
+    plain versions, and saves the native tree of ``make_atrium(0)`` to
+    ``out/tree.npz``. Prints one JSON line last."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    import minipath_tpu_torch
+    from minipath_tpu_torch.camera import sample_rays
+    from minipath_tpu_torch.geometry.ray import make_rays
+    from minipath_tpu_torch.render import integrator, kernels, kernels_q
+    from minipath_tpu_torch.scene import procedural
+    from minipath_tpu_torch.scene.bvh import native
+    from minipath_tpu_torch.scene.triangle_bvh import TriangleBvh
+    from minipath_tpu_torch.utils import calibrate, cuda_build
+
+    package = Path(minipath_tpu_torch.__file__).parent
+    cache = Path(os.environ["XDG_CACHE_HOME"]) / "minipath_tpu_torch"
+    if package != Path(site) / "minipath_tpu_torch" or cuda_build.build_dir() != cache:
+        raise AssertionError(f"the package at {package} builds into {cuda_build.build_dir()}")
+
+    def build_native():
+        t0 = time.perf_counter()
+        native._load()
+        return native.library_path(), time.perf_counter() - t0
+
+    loaders = {"traverse.cu": kernels.load_library, "traverse_q.cu": kernels_q.load_library,
+               "chain.cu": calibrate.load_library, "minipath_native.cpp": build_native}
+    with ThreadPoolExecutor(len(loaders)) as pool:
+        futures = {name: pool.submit(load) for name, load in loaders.items()}
+        built = {name: f.result() for name, f in futures.items()}
+    builds = {name: (r.path, r.build_seconds) if name.endswith(".cu") else r for name, r in built.items()}
+    for name, (path, seconds) in builds.items():
+        log("28 installed", f"{name}: built in {seconds:.2f} s into {path}")
+        if path.parent != cache or not path.exists() or not seconds > 0:
+            raise AssertionError(f"{name} was not built into {cache}: {path}")
+
+    device = torch.device("cuda", 0)
+    mesh = procedural.make_atrium(0)
+    res = native.build_bvh_native(mesh)
+    np.savez(Path(out) / "tree.npz", **res.arrays._asdict())
+    bvh = TriangleBvh(res)
+    stack = bvh.recommended_stack_size
+    sampler = bench_camera().build_sampler((WIDTH, HEIGHT), device)
+    pix = integrator.tile_pixel_packets((WIDTH // 2 - 64, HEIGHT // 2 - 64), (128, 128), (16, 16), device)
+    coherent = kernels.rays_to_rays9(sample_rays(sampler, pix, torch.Generator(device=device).manual_seed(0)))
+    rng = np.random.default_rng(1)
+    lo, hi = res.arrays.bbox_min, res.arrays.bbox_max
+    o = torch.from_numpy(rng.uniform(lo + 0.5, hi - 0.5, (64, 256, 3)).astype(np.float32)).to(device)
+    d = torch.from_numpy(rng.normal(size=(64, 256, 3)).astype(np.float32)).to(device)
+    r9 = torch.cat([coherent, kernels.rays_to_rays9(make_rays(o, d))])
+    reset_launches()
+    scene, q = bvh.kernel_scene(device), bvh.quantized_scene(device)
+    k1, _ = compare("K1 from the installation", kernels.trace_packets(scene, r9, stack_size=stack),
+                    kernels.trace_packets_reference(scene, r9, stack_size=stack))
+    k3, _ = compare("K3 full from the installation", kernels_q.trace_packets_q(q, r9, stack_size=stack),
+                    kernels_q.trace_packets_q_reference(q, r9, stack_size=stack))
+    x = calibrate.chain_input(calibrate.CHAIN_SHAPE, torch.float32, device)
+    calibrate.vpu_chain.launches.update(float32=0, bfloat16=0)
+    got, want = calibrate.vpu_chain(x, INSTALL_K4_ITERS), calibrate.vpu_chain_reference(x, INSTALL_K4_ITERS)
+    k4 = torch.equal(got.view(torch.int32), want.view(torch.int32))
+    launches = {"K1": kernels.trace_packets.launches, "K3": kernels_q.trace_packets_q.launches["full"],
+                "K4": calibrate.vpu_chain.launches["float32"]}
+    log("28 installed", f"{k1} | {k3} | K4 {tuple(x.shape)} x {INSTALL_K4_ITERS} bit for bit {k4} | launches "
+        f"{json.dumps(launches)}")
+    if not k4 or min(launches.values()) != 1:
+        raise AssertionError(f"K4 equal {k4}, launches {launches}")
+    print(json.dumps({"build_seconds": {name: seconds for name, (_, seconds) in builds.items()}}), flush=True)
+    return 0
+
+
+def phase_installed(smi):
+    """Phase 28: builds a wheel of this checkout offline, installs it with
+    ``--target`` into a temporary directory, makes the package read-only,
+    runs :func:`installed_check` there with the working directory, ``HOME``
+    and ``XDG_CACHE_HOME`` in temporary directories, and holds its native
+    tree to the checkout's."""
+    import shutil
+    import stat
+
+    from minipath_tpu_torch.scene import procedural
+    from minipath_tpu_torch.scene.bvh import native
+
+    t_phase = time.perf_counter()
+    try:
+        import setuptools  # noqa: F401
+    except ImportError:
+        raise AssertionError("phase 28 builds the wheel with the interpreter's setuptools "
+                             "(pip wheel --no-build-isolation), and this Python has none") from None
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        src, dist, site = tmp / "src", tmp / "dist", tmp / "site"
+        src.mkdir()
+        shutil.copy(REPO / "pyproject.toml", src)
+        for pkg in ("minipath_tpu", "minipath_tpu_torch"):
+            shutil.copytree(REPO / pkg, src / pkg, ignore=shutil.ignore_patterns("__pycache__", "_build", "*.pyc"))
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        pip = [sys.executable, "-m", "pip", "-q", "--no-deps", "--no-index", "--no-cache-dir"]
+        t0 = time.perf_counter()
+        subprocess.run([*pip[:3], "wheel", *pip[3:], "--no-build-isolation", "-w", str(dist), str(src)],
+                       check=True, env=env, timeout=300)
+        (wheel,) = dist.glob("*.whl")
+        subprocess.run([*pip[:3], "install", *pip[3:], "--target", str(site), str(wheel)], check=True, env=env,
+                       timeout=300)
+        package = site / "minipath_tpu_torch"
+        for p in (package, *package.rglob("*")):
+            p.chmod(p.stat().st_mode & ~(stat.S_IWUSR | stat.S_IWGRP | stat.S_IWOTH))
+        log("28 installed", f"{wheel.name} built and installed in {time.perf_counter() - t0:.1f} s; package "
+            f"read-only")
+        for d in ("cache", "home", "cwd"):
+            (tmp / d).mkdir()
+        env.update(PYTHONPATH=str(site), HOME=str(tmp / "home"), XDG_CACHE_HOME=str(tmp / "cache"),
+                   PYTHONDONTWRITEBYTECODE="1")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", INSTALLED_LOADER, str(REPO / "chip_smoke.py"), str(site),
+                               str(tmp)], cwd=tmp / "cwd", env=env, capture_output=True, text=True,
+                              timeout=INSTALL_TIMEOUT_S)
+        for line in proc.stdout.splitlines()[:-1]:
+            print(line, flush=True)
+        if proc.returncode != 0:
+            raise AssertionError(f"the installation's check exited {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                                 f"{proc.stderr[-4000:]}")
+        builds = json.loads(proc.stdout.splitlines()[-1])["build_seconds"]
+        want = native.build_bvh_native(procedural.make_atrium(0)).arrays
+        with np.load(tmp / "tree.npz") as got:
+            differ = [f for f in want._fields if not np.array_equal(got[f], np.asarray(getattr(want, f)))]
+        for p in (package, *package.rglob("*")):
+            p.chmod(p.stat().st_mode | stat.S_IWUSR)
+    if differ:
+        raise AssertionError(f"the installation's native tree differs from the checkout's in {differ}")
+    log("28 installed", f"on {smi}: build seconds {json.dumps({k: round(v, 2) for k, v in builds.items()})}; the "
+        f"native tree of make_atrium(0) equals the checkout's; subprocess {time.perf_counter() - t0:.1f} s")
+    log("28 installed", f"phase time {time.perf_counter() - t_phase:.1f} s")
+
+
 def profile_pt_frame(parts, device, out_dir: Path, name="pt"):
     """A ``torch.profiler`` trace of one warm path-traced frame; writes the
     per-kernel table and a summary by kind to ``out_dir`` as
@@ -2573,7 +2850,7 @@ def main() -> int:
     by_path = phase_sharded(bvh, big, parts, ref64, pt_warm, device, smi)
     by_path["adaptive pt"] = phase_adaptive(parts, pt_mean, device, smi)
     by_path["two-level pt"] = phase_twolevel(pt_bvh, parts, ref64, pt_warm, device, smi)
-    del big, pt_bvh, parts, bvh, ref64
+    del big, pt_bvh, parts, ref64
     k4, k4_launches, k5, k5_launches, _ = phase_chain(device, smi)
     phase_bench(smi)
     phase_tools(smi)
@@ -2584,6 +2861,9 @@ def main() -> int:
     by_path.update(demo_launches)
     by_path["bench_quality"] = phase_quality(smi)
     by_path.update(phase_sweeps(smi))
+    phase_p3(bvh, device, smi)
+    del bvh
+    phase_installed(smi)
 
     def entry(name, source, replaces, launches, results, key, **extra):
         r = results[key]

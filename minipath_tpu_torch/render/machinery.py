@@ -146,6 +146,27 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
+def place_tiles(frame: torch.Tensor, tiles_u8: torch.Tensor, origins: torch.Tensor, tile_size: int) -> None:
+    """Writes a batch of tiles into frame mode's device buffer ``frame``,
+    ``(height + 1, width + 1, 4)``, in one scatter. ``tiles_u8`` ``(K, th,
+    tw, 4)`` are traced at the packet-rounded shape; ``origins`` ``(K, 2)``
+    are the tiles' ``min`` as (x, y). A tile covers ``tile_size`` pixels a
+    side, clipped at the frame's edge (``ScreenBlock.tile_ordering``). The
+    positions past that extent go to the pad row or column, which is never
+    fetched: no tile writes over a neighbour, and the writes to the image
+    are disjoint, which a CUDA scatter needs to be deterministic (it leaves
+    the winner of a duplicate index unspecified)."""
+    _, th, tw, _ = tiles_u8.shape
+    height, width = frame.shape[0] - 1, frame.shape[1] - 1
+    dy = torch.arange(th, device=frame.device)[None, :, None]
+    dx = torch.arange(tw, device=frame.device)[None, None, :]
+    yy = origins[:, 1].long()[:, None, None] + dy
+    xx = origins[:, 0].long()[:, None, None] + dx
+    yy = torch.where((dy < tile_size) & (yy < height), yy, height)
+    xx = torch.where((dx < tile_size) & (xx < width), xx, width)
+    frame[yy, xx] = tiles_u8
+
+
 def render(
     scene: Scene,
     camera: Camera,
@@ -208,8 +229,8 @@ def render(
         device = mesh[0]
     device = torch.device("cuda" if device is None else device)
     width, height = settings.resolution
-    # Tiles are traced at a packet-multiple shape; edge tiles are cropped on
-    # write-back.
+    # Tiles are traced at a packet-multiple shape; each is cropped to its own
+    # extent where it is written back (tile mode) or placed (frame mode).
     tile_shape = (
         _round_up(settings.tile_size, PACKET_SHAPE[0]),
         _round_up(settings.tile_size, PACKET_SHAPE[1]),
@@ -288,8 +309,8 @@ def render(
                 )
 
     if frame_mode:
-        # Padded by one tile so edge tiles land whole and are cropped once.
-        state.frame_dev = torch.zeros((height + th, width + tw, 4), dtype=torch.uint8, device=device)
+        # One pad row and column, never fetched (place_tiles).
+        state.frame_dev = torch.zeros((height + 1, width + 1, 4), dtype=torch.uint8, device=device)
         def fetch_frame():
             with state.timers.phase("fetch", device):
                 full = state.frame_dev[:height, :width].cpu().numpy()
@@ -299,9 +320,7 @@ def render(
         state.frame_fetch = fetch_frame
 
         def place_batch(batch, tiles_u8, origins):
-            yy = origins[:, 1].long()[:, None, None] + torch.arange(th, device=device)[None, :, None]
-            xx = origins[:, 0].long()[:, None, None] + torch.arange(tw, device=device)[None, None, :]
-            state.frame_dev[yy, xx] = tiles_u8
+            place_tiles(state.frame_dev, tiles_u8, origins, settings.tile_size)
             state.finished_count += len(batch)
 
     def run():

@@ -1,16 +1,19 @@
 """ctypes bindings for the native (C++) OBJ loader and BVH builder.
 
-Port of ``minipath_tpu/scene/bvh/native.py``. It binds the repository's
-``native/minipath_native.cpp`` as it is: the source has no framework
-dependency, and its arrays follow the layout of ``scene/bvh/build.py``, so
-:func:`build_bvh_native` returns the port's :class:`BuildResult` and
-:func:`load_obj_native` its :class:`MeshData`.
+Port of ``minipath_tpu/scene/bvh/native.py``. It binds
+``csrc/minipath_native.cpp``, the package's own byte-identical copy of the
+repository's ``native/minipath_native.cpp``, so that an installed package
+carries it: the source has no framework dependency, and its arrays follow
+the layout of ``scene/bvh/build.py``, so :func:`build_bvh_native` returns
+the port's :class:`BuildResult` and :func:`load_obj_native` its
+:class:`MeshData`.
 
 The library is compiled with ``g++`` at first use into
-``minipath_tpu_torch/_build/``, keyed on a hash of the source and the flags
-as ``utils/cuda_build.py`` keys the CUDA libraries. :func:`is_available` says
-whether a compiler and the source are present; a build that then fails
-raises instead of falling back to the Python builder.
+``utils/cuda_build.py::build_dir()`` (the package's ``_build/``, or the
+user's cache where the package is read-only), keyed on a hash of the source
+and the flags as the CUDA libraries are. :func:`is_available` says whether a
+compiler and the source are present; a build that then fails raises instead
+of falling back to the Python builder.
 """
 
 from __future__ import annotations
@@ -27,9 +30,9 @@ import numpy as np
 
 from minipath_tpu_torch.scene.bvh.build import BuildResult, BvhArrays, compute_tree_stats
 from minipath_tpu_torch.scene.obj_loader import MeshData, ObjOpenError
+from minipath_tpu_torch.utils.cuda_build import build_dir
 
-_SOURCE = Path(__file__).resolve().parents[3] / "native" / "minipath_native.cpp"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
+_SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "minipath_native.cpp"
 _FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
 
 _lock = threading.Lock()
@@ -73,7 +76,7 @@ def is_available() -> bool:
 def library_path() -> Path:
     """Where the build of the current source goes."""
     digest = hashlib.sha256(_SOURCE.read_bytes() + " ".join(_FLAGS).encode()).hexdigest()[:16]
-    return _BUILD_DIR / f"libminipath_native-{digest}.so"
+    return build_dir() / f"libminipath_native-{digest}.so"
 
 
 def _load():
@@ -85,7 +88,6 @@ def _load():
             raise RuntimeError(f"the native builder needs g++ and {_SOURCE}")
         out = library_path()
         if not out.exists():
-            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
             proc = subprocess.run(
                 ["g++", *_FLAGS, str(_SOURCE), "-o", str(tmp)], capture_output=True, text=True, timeout=300

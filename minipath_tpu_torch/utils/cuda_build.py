@@ -3,9 +3,9 @@
 The kernels have a plain C interface (pointers, ints and the stream), so
 each source (``csrc/traverse.cu``, ``csrc/traverse_q.cu``) is compiled by
 ``nvcc`` alone, without PyTorch's headers, into a library of its own in
-``minipath_tpu_torch/_build/``, and loaded with ``ctypes``. A build is keyed
-on a hash of the source, the headers it includes from its own directory, and
-the flags: an unchanged source is built once per checkout, at its first use.
+:func:`build_dir`, and loaded with ``ctypes``. A build is keyed on a hash of
+the source, the headers it includes from its own directory, and the flags:
+an unchanged source is built once per build directory, at its first use.
 The target is Hopper (``sm_90a``).
 """
 
@@ -22,6 +22,7 @@ import time
 from dataclasses import dataclass
 from pathlib import Path
 
+# The package's own build directory, used where it can be written.
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 
 # No --use_fast_math: the kernels rely on IEEE division and square root.
@@ -69,6 +70,27 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: install the CUDA toolkit or set CUDA_HOME")
 
 
+def _writable(path: Path) -> bool:
+    """Whether ``path`` may be written: the process has the access and the
+    mode grants someone write. Root passes every access check, so the mode
+    is what tells it that a package was installed read-only."""
+    return os.access(path, os.W_OK) and bool(path.stat().st_mode & 0o222)
+
+
+def build_dir() -> Path:
+    """Where the package's native and CUDA libraries are built: the
+    package's ``_build/`` where it (or, before the first build, the package
+    directory) can be written, else ``$XDG_CACHE_HOME/minipath_tpu_torch``
+    (``~/.cache/minipath_tpu_torch`` where that variable is unset), as in an
+    installation that is read-only. The directory is created if missing."""
+    if _writable(BUILD_DIR if BUILD_DIR.exists() else BUILD_DIR.parent):
+        out = BUILD_DIR
+    else:
+        out = Path(os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache") / "minipath_tpu_torch"
+    out.mkdir(parents=True, exist_ok=True)
+    return out
+
+
 _INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.MULTILINE)
 
 
@@ -108,11 +130,10 @@ def load_cuda_library(source: Path) -> CudaLibrary:
         digest = hashlib.sha256(
             source_bytes(source) + " ".join(NVCC_FLAGS).encode()
         ).hexdigest()[:16]
-        out = BUILD_DIR / f"lib{source.stem}-{digest}.so"
+        out = build_dir() / f"lib{source.stem}-{digest}.so"
         log_path = out.with_suffix(".log")
         seconds = 0.0
         if not out.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
             t0 = time.perf_counter()
             proc = subprocess.run(

@@ -1,4 +1,5 @@
-"""``render(backend="portable")`` on the card against ``render()``.
+"""``render(backend="portable")`` on the card against ``render()``, and
+``render()``'s frame mode at a tile size off the packet's 16 pixels.
 
 Every test here needs an NVIDIA GPU and skips without one. The file imports
 neither JAX nor the JAX package: ``python -m pytest --noconftest -q
@@ -35,8 +36,8 @@ def atrium():
 CAMERA = Camera().look_at((-16.0, 4.0, 0.0), (10.0, 3.0, 0.5)).f_number(8.0).sensor_width(36e-3)
 
 
-def _image(bvh, device, backend, callback=None, mesh=None):
-    settings = RenderSettings(tile_size=32, sample_count=4, resolution=(128, 72))
+def _image(bvh, device, backend, callback=None, mesh=None, tile_size=32):
+    settings = RenderSettings(tile_size=tile_size, sample_count=4, resolution=(128, 72))
     p = render(Scene(bvh), CAMERA, settings, finished_tile_callback=callback, device=None if mesh else device,
                seed=9, backend=backend, mesh=mesh)
     p.wait()
@@ -57,3 +58,13 @@ def test_portable_render_matches_the_kernel(cuda, atrium, mode):
 def test_portable_render_over_a_mesh_is_bit_for_bit(cuda, atrium):
     meshed = _image(atrium, cuda, "portable", mesh=(cuda, cuda))
     assert np.array_equal(meshed, _image(atrium, cuda, "portable"))
+
+
+def test_frame_mode_off_the_packet_size_is_deterministic(cuda, atrium):
+    """At ``tile_size`` 40 each tile is traced at 48 px and placed at its own
+    extent: the frame's writes are disjoint, so two frame-mode renders with
+    one seed are equal bit for bit (a CUDA scatter leaves the winner of a
+    duplicate index unspecified), and equal to tile mode's."""
+    first = _image(atrium, cuda, "kernel", tile_size=40)
+    assert np.array_equal(first, _image(atrium, cuda, "kernel", tile_size=40))
+    assert np.array_equal(first, _image(atrium, cuda, "kernel", lambda tile, snapshot: None, tile_size=40))

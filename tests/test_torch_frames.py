@@ -168,7 +168,7 @@ def test_push_ranks_equal_the_stable_sort(n_hit):
         assert torch.equal(t1[last], nearest)  # the entry kept in registers is a nearest child
 
 
-@settings(max_examples=200, deadline=None)
+@settings(max_examples=200, deadline=None, database=None)
 @given(
     st.lists(st.tuples(st.sampled_from([0.0, 1e-30, 0.25, 0.25, 3.0, 1e30]), st.booleans()), min_size=8, max_size=8)
 )

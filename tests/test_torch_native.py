@@ -1,9 +1,10 @@
 """The port's native (C++) loader and builder against the JAX package's, on
 the CPU.
 
-Both bind the same ``native/minipath_native.cpp`` (the port builds its own
-copy of the library), so on the same mesh their arrays are equal bit for
-bit: no tolerance. Against the port's Python builder the trees may differ,
+Both bind the same source, ``native/minipath_native.cpp`` and the port's
+byte-identical copy of it, ``minipath_tpu_torch/csrc/minipath_native.cpp``
+(each builds its own library), so on the same mesh their arrays are equal
+bit for bit: no tolerance. Against the port's Python builder the trees may differ,
 so the check there is the closest hit of the same rays: the same hits, the
 same distances within 1e-5 relative and 1e-6 absolute, as
 ``tests/test_native.py`` holds the JAX package's native build. Every test

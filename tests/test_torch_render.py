@@ -10,6 +10,7 @@ from pathlib import Path
 import jax
 import numpy as np
 import pytest
+import torch
 
 from minipath_tpu import Camera as JaxCamera
 from minipath_tpu import RenderSettings as JaxRenderSettings
@@ -21,10 +22,12 @@ from minipath_tpu.render.stratify import render_seed
 from minipath_tpu.scene import procedural as jax_procedural
 from minipath_tpu_torch import Camera, RenderSettings, Scene, TriangleBvh, render
 from minipath_tpu_torch.camera import CameraSampler
+from minipath_tpu_torch.render import machinery
 from minipath_tpu_torch.render.frame import render_frame
 from minipath_tpu_torch.render.kernels import prepare_scene
 from minipath_tpu_torch.scene import procedural
 from minipath_tpu_torch.scene.bvh.build import from_numpy
+from minipath_tpu_torch.screen_block import ScreenBlock
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -338,3 +341,65 @@ def test_sphere_ignores_backend():
         p.wait()
         images.append(p.image())
     assert np.array_equal(images[0], images[1]) and (images[0][..., 3] > 0).any()
+
+
+# Frame mode against tile mode: (tile_size, square resolution), one dispatch
+# of at most 64 tiles either way, so both draw the same jitter.
+TILE_SIZES_OFF_THE_PACKET = {40: 96, 24: 96, 8: 64}
+PLACEMENT_SEED = 3
+
+
+def _render_image(bvh, tile_size, resolution, callback=None, mesh=None):
+    settings = RenderSettings(tile_size=tile_size, sample_count=4, resolution=(resolution, resolution))
+    p = render(Scene(bvh), _camera(Camera), settings, finished_tile_callback=callback,
+               device=None if mesh else "cpu", seed=PLACEMENT_SEED, mesh=mesh)
+    p.wait()
+    return p.image()
+
+
+@pytest.mark.parametrize("mesh", [None, ("cpu",) * 3], ids=["one device", "mesh of 3"])
+@pytest.mark.parametrize("tile_size", list(TILE_SIZES_OFF_THE_PACKET))
+def test_frame_mode_equals_tile_mode_off_the_packet_size(bvh, tile_size, mesh):
+    """A tile size that is not a multiple of 16 is traced at the
+    packet-rounded shape; frame mode places only each tile's own extent, as
+    tile mode writes it back, so the two images are equal bit for bit (the
+    placement before, which wrote the padding over the neighbours, differed
+    on hundreds of pixels here)."""
+    resolution = TILE_SIZES_OFF_THE_PACKET[tile_size]
+    frame = _render_image(bvh, tile_size, resolution, mesh=mesh)
+    tiled = _render_image(bvh, tile_size, resolution, callback=lambda tile, snapshot: None)
+    assert np.array_equal(frame, tiled)
+    assert 0.05 < (frame[..., 3] > 0).mean() < 0.95
+
+
+def _parent_placement(tiles, tiles_u8, width, height):
+    """Frame mode's placement before the repair, as a plain function: each
+    tile's whole packet-rounded block at its origin, in one scatter, into a
+    frame padded by one tile, cropped once."""
+    _, th, tw, _ = tiles_u8.shape
+    frame = torch.zeros((height + th, width + tw, 4), dtype=torch.uint8)
+    origins = torch.tensor(np.array([t.min for t in tiles]))
+    yy = origins[:, 1][:, None, None] + torch.arange(th)[None, :, None]
+    xx = origins[:, 0][:, None, None] + torch.arange(tw)[None, None, :]
+    frame[yy, xx] = tiles_u8
+    return frame[:height, :width].numpy()
+
+
+@pytest.mark.parametrize("tile_size", [48, 64])
+def test_frame_mode_keeps_its_image_at_packet_multiples(bvh, monkeypatch, tile_size):
+    """At a tile size that is a multiple of 16 (the CLI's, the GUI's and the
+    bench's 64) no tile has padding inside the frame: the image is the one
+    the placement before the repair gave, edge tiles cropped at the frame's
+    edge included."""
+    batches = []
+    finalize = machinery._finalize_u8
+
+    def recording(acc, spp):
+        batches.append(finalize(acc, spp))
+        return batches[-1]
+
+    monkeypatch.setattr(machinery, "_finalize_u8", recording)
+    got = _render_image(bvh, tile_size, 96)
+    tiles = ScreenBlock.with_size((0, 0), (96, 96)).tile_ordering(tile_size, rng=np.random.default_rng(PLACEMENT_SEED))
+    assert len(batches) == 1 and batches[0].shape[0] == len(tiles)
+    assert np.array_equal(got, _parent_placement(tiles, batches[0], 96, 96))

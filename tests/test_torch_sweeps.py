@@ -40,6 +40,7 @@ from minipath_tpu_torch.tools import (
     sweep_sbvh,
     tree_quality,
 )
+from test_torch_tools import root_state
 
 REPO = Path(__file__).resolve().parent.parent
 TINY_MEAN_RTOL = 0.5
@@ -154,10 +155,6 @@ def few_threads():
     torch.set_num_threads(n)
 
 
-def _root_state():
-    return {p.name: (p.stat().st_size, p.stat().st_mtime_ns) for p in REPO.iterdir()}
-
-
 def _run(tool, args):
     said = io.StringIO()
     with contextlib.redirect_stdout(said):
@@ -170,14 +167,14 @@ def _run(tool, args):
 @pytest.mark.parametrize("name", list(TOOLS))
 def test_tool_keeps_the_artifact_keys(tiny, tmp_path, name):
     tool, keys, size, check = TOOLS[name]
-    before = _root_state()
+    before = root_state()
     out_path = tmp_path / f"{name}.json"
     rc, got = _run(tool, ["--out", str(out_path), *size])
     assert rc == 0 and got["gates_failed"] == []
     assert set(keys) <= set(got), set(keys) - set(got)
     assert json.loads(out_path.read_text()) == got
     assert got["device"] == "cpu"
-    assert _root_state() == before  # no artifact rewritten, no file added at the root
+    assert root_state() == before  # no artifact rewritten, no file added at the root
     check(got)
 
 

@@ -14,6 +14,8 @@ appears in a CPU ``torch.profiler`` run of ``_pt_trace``, and
 import contextlib
 import io
 import json
+import os
+import shutil
 from pathlib import Path
 
 import numpy as np
@@ -161,15 +163,86 @@ def few_threads():
     torch.set_num_threads(n)
 
 
-def _root_state():
-    return {p.name: (p.stat().st_size, p.stat().st_mtime_ns) for p in REPO.iterdir()}
+def _ignored_dirs(root):
+    """The names of the directories at ``root`` that its ``.gitignore``
+    lists (``.jax_cache/``, ``.hypothesis/``, ``.bench_cache/``, ...): caches
+    that other test processes fill while a tool runs."""
+    path = root / ".gitignore"
+    lines = [ln.strip() for ln in path.read_text().splitlines()] if path.exists() else []
+    return {ln.strip("/") for ln in lines if ln.endswith("/") and not ln.startswith("#") and "/" not in ln.strip("/")}
+
+
+def root_state(root=REPO):
+    """What a tool must leave at the repository's root as it found it: the
+    size and mtime of each regular file, and the names of the entries but
+    the directories that ``.gitignore`` lists. A directory's mtime is not
+    compared: other test processes write into ``.jax_cache/``,
+    ``minipath_tpu_torch/_build/`` and ``native/build/`` while a tool runs."""
+    ignored = _ignored_dirs(root)
+    names, files = set(), {}
+    for p in root.iterdir():
+        if p.is_dir() and p.name in ignored:
+            continue
+        names.add(p.name)
+        if p.is_file() and not p.is_symlink():
+            st = p.stat()
+            files[p.name] = (st.st_size, st.st_mtime_ns)
+    return {"names": names, "files": files}
+
+
+def _touch_later(path):
+    """Moves ``path``'s mtime one second on, as a write would."""
+    st = path.stat()
+    os.utime(path, ns=(st.st_atime_ns, st.st_mtime_ns + 10**9))
+
+
+def _rewrite_artifact(root):
+    (root / "BENCH_pt.json").write_text("{}")
+    _touch_later(root / "BENCH_pt.json")
+
+
+def _fill_jax_cache(root):
+    (root / ".jax_cache" / "entry").write_text("x")
+    _touch_later(root / ".jax_cache")
+
+
+def _build_in_package(root):
+    (root / "minipath_tpu_torch" / "_build").mkdir()
+    _touch_later(root / "minipath_tpu_torch")
+
+
+# A change at the root, and whether root_state stays equal across it.
+ROOT_CHANGES = {
+    "artifact rewritten, same size": (_rewrite_artifact, False),
+    "file added": (lambda root: (root / "new.json").write_text("{}"), False),
+    "unlisted directory added": (lambda root: (root / "build").mkdir(), False),
+    "entry added in .jax_cache/": (_fill_jax_cache, True),
+    ".hypothesis/ created": (lambda root: (root / ".hypothesis").mkdir(), True),
+    "_build/ created in a package": (_build_in_package, True),
+}
+
+
+@pytest.mark.parametrize("case", list(ROOT_CHANGES))
+def test_root_state_sees_a_tools_writes_and_not_the_caches(tmp_path, case):
+    """On a root laid out as the repository's (its ``.gitignore``, an
+    artifact, a package, the JAX compile cache), the check fails for a
+    rewritten artifact, a new file and a new unlisted directory, and holds
+    while other processes fill the caches."""
+    shutil.copy(REPO / ".gitignore", tmp_path / ".gitignore")
+    (tmp_path / "BENCH_pt.json").write_text("{}")
+    (tmp_path / "minipath_tpu_torch").mkdir()
+    (tmp_path / ".jax_cache").mkdir()
+    before = root_state(tmp_path)
+    change, stays = ROOT_CHANGES[case]
+    change(tmp_path)
+    assert (root_state(tmp_path) == before) is stays
 
 
 @pytest.mark.parametrize("name", list(TOOLS))
 def test_tool_keeps_the_artifact_keys(tiny, tmp_path, name):
     tool, artifact, size, check = TOOLS[name]
     want = json.loads((REPO / artifact).read_text()) if isinstance(artifact, str) else dict.fromkeys(artifact)
-    before = _root_state()
+    before = root_state()
     out_path = tmp_path / f"{name}.json"
     said = io.StringIO()
     with contextlib.redirect_stdout(said):
@@ -183,7 +256,7 @@ def test_tool_keeps_the_artifact_keys(tiny, tmp_path, name):
     assert got["device"] == "cpu"
     if "device_health" in want:
         assert set(got["device_health"]) >= set(want["device_health"]) - {"device"}
-    assert _root_state() == before  # no artifact rewritten, no file added at the root
+    assert root_state() == before  # no artifact rewritten, no file added at the root
     check(got)
 
 

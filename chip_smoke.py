@@ -19,7 +19,10 @@ exits non-zero. There is no CPU path: without a CUDA device it fails at once.
    them. Prints the agreement and the time of each version at these shapes,
    the kernel's time at the whole dispatch, and beside each time its bound
    and the bytes the launch's threads requested (from its own counters) with
-   the rate that makes; phases 6 and 10 do the same.
+   the rate that makes; phases 6 and 10 do the same. The dispatch slice
+   passes its live count as a device tensor, and K1 takes it in each form
+   and at its edges (0, negative, above the packets) with no host sync,
+   equal bit for bit to the count given as an int.
 4. Main path: ``render()`` of the atrium at 1920x1080 @ 64 spp in frame
    mode, once cold and once warm; the warm frame counts kernel launches.
    Then the same frame over two native-built trees of the same mesh: the
@@ -83,10 +86,13 @@ after phase 9, while the path-traced atrium is on the card:
     ``make_full_tracer`` (K1), launches counted, hit masks equal and normals
     within 2e-3, and through ``make_full_tracer`` over the tree's
     ``QuantizedScene`` (K3 in full mode) against K1's by share of pixels; the
-    same Sobol path-traced frame over the three tracers, host syncs counted; ``atrous_denoise`` fixed-sigma and variance-guided, timed
-    warm; the card's output against the CPU's on a 256x256 crop; the
-    filtered frame's RMSE against phase 7's 64-spp frame below the raw 4-spp
-    frame's, its mean within 5%. Then the CLI with ``--denoise --aov``.
+    same Sobol path-traced frame over the three tracers, host syncs counted
+    (over K1 and K3 no more than over K2: each kernel reads its live count
+    from device memory); ``atrous_denoise`` fixed-sigma and
+    variance-guided, timed warm; the card's output against the CPU's on a
+    256x256 crop; the filtered frame's RMSE against phase 7's 64-spp frame
+    below the raw 4-spp frame's, its mean within 5%. Then the CLI with
+    ``--denoise --aov``.
 15. The GUI's controllers, headless: ``tools.bench_gui``'s ``main`` on the
     atrium at 2048x1536 (preview 1 spp, full 2 spp, two camera moves); a
     ``GuiController`` whose final image equals ``render()``'s in tile mode
@@ -211,9 +217,11 @@ Phases 27 and 28 run after phase 26:
     package made read-only; in a subprocess that sees only the installation,
     with its working directory, ``HOME`` and ``XDG_CACHE_HOME`` temporary:
     ``traverse.cu``, ``traverse_q.cu``, ``chain.cu`` and the native library
-    built (each into the user's cache, each build's seconds printed), K1, K3
-    (full) and K4 launched once each against their plain versions, and the
-    native tree of ``make_atrium(0)``, held to the checkout's bit for bit.
+    built (each into the user's cache, each build's seconds printed), a
+    small scene cached by the tools' builder (into the user's cache, nothing
+    beside the package), K1, K3 (full) and K4 launched once each against
+    their plain versions, and the native tree of ``make_atrium(0)``, held to
+    the checkout's bit for bit.
 
 ``python3 chip_smoke.py --kernels-only`` runs phases 1, 2, 3, 6 and 10 alone:
 the traversal kernels against their plain versions, with their times, bounds
@@ -486,6 +494,53 @@ def compare(name, got, want):
     return text, max(t_abs, n_abs)
 
 
+K1_FIELDS = ("t", "tri", "normal", "material", "overflow", "inner_visits", "leaf_tests")
+
+
+def check_live_counts(scene, r9, stack, all_live, device) -> str:
+    """K1 on ``r9``, ``B`` packets, with its live count in each form (None,
+    an int, a one-element int32 and int64 tensor on the card) and at the
+    edges (0, a negative count, one above ``B``): each launch makes no host
+    sync (``set_sync_debug_mode("error")``), its outputs equal those of the
+    count as an int bit for bit, and the plain version's (``all_live`` where
+    every packet is live) bit for bit but the normal, within
+    ``NORMAL_ATOL``. Raises on a difference."""
+    from minipath_tpu_torch.render import kernels
+
+    B = r9.shape[0]
+    half = B // 2
+
+    def on_card(value, dtype):
+        return torch.tensor([value], dtype=dtype, device=device)
+
+    counts = {"None": (None, B), "int": (half, half), "int32 tensor": (on_card(half, torch.int32), half),
+              "int64 tensor": (on_card(half, torch.int64).reshape(()), half),
+              "zero": (on_card(0, torch.int32), 0), "negative": (on_card(-3, torch.int32), -3),
+              "above B": (on_card(B + 5, torch.int32), B + 5)}
+    plain = {B: all_live}
+    for n in (half, 0):
+        plain[n] = kernels.trace_packets_reference(scene, r9, stack_size=stack, live_packets=n)
+    torch.cuda.synchronize()
+    said = []
+    for label, (live, count) in counts.items():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = kernels.trace_packets(scene, r9, stack_size=stack, live_packets=live)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        as_int = kernels.trace_packets(scene, r9, stack_size=stack, live_packets=count)
+        want = plain[max(0, min(B, count))]
+        differ = [f for f in K1_FIELDS if not torch.equal(getattr(got, f), getattr(as_int, f))]
+        exact = [f for f in K1_FIELDS if f != "normal"]
+        differ += [f"plain {f}" for f in exact if not torch.equal(getattr(got, f), getattr(want, f))]
+        n_err = (got.normal - want.normal).abs().max().item()
+        if differ or n_err > NORMAL_ATOL:
+            raise AssertionError(f"K1 with live_packets {label} ({count}) differs in {differ}, normal {n_err:.3g}")
+        said.append(f"{label} {int((got.tri >= 0).sum())} hits")
+    return (f"live count on {B} dispatch-slice packets, each launch without a host sync, equal bit for bit to the "
+            f"int path and (normals within {NORMAL_ATOL}) the plain version: {', '.join(said)}")
+
+
 def phase_kernel(bvh, device):
     from minipath_tpu_torch.camera import sample_rays
     from minipath_tpu_torch.geometry.ray import make_rays
@@ -515,17 +570,22 @@ def phase_kernel(bvh, device):
 
     results = {}
     for name, r9 in (("coherent", coherent), ("incoherent", incoherent), ("dispatch slice", part)):
-        got = kernels.trace_packets(scene, r9, stack_size=stack)
+        # The main path's slice takes its live count as a device tensor, as
+        # the bounce loop gives it: every packet live.
+        live = torch.tensor([r9.shape[0]], dtype=torch.int32, device=device) if r9 is part else None
+        got = kernels.trace_packets(scene, r9, stack_size=stack, live_packets=live)
         torch.cuda.synchronize()
         want = kernels.trace_packets_reference(scene, r9, stack_size=stack)
         text, err = compare(name, got, want)
-        ms = cuda_ms(lambda: kernels.trace_packets(scene, r9, stack_size=stack), 20)
+        ms = cuda_ms(lambda: kernels.trace_packets(scene, r9, stack_size=stack, live_packets=live), 20)
         plain_ms = cuda_ms(lambda: kernels.trace_packets_reference(scene, r9, stack_size=stack), 1)
         bound_ms, bound_by, bound = traversal_bound("traverse", scene, r9, got, stack_size=stack, t_max=math.inf,
                                                     live_packets=None)
         log("3 kernel", f"{text} | kernel {ms:.4f} ms, plain {plain_ms:.2f} ms | {bound} | "
             f"{requested('traverse', got, ms)}")
         results[name] = dict(ms=ms, plain_ms=plain_ms, err=err, bound_ms=bound_ms, bound_by=bound_by)
+
+    log("3 kernel", check_live_counts(scene, part, stack, want, device))
 
     n = dispatch.shape[0] * dispatch.shape[2]
     ms = cuda_ms(lambda: kernels.trace_packets(scene, dispatch, stack_size=stack), 5)
@@ -991,11 +1051,10 @@ def phase_denoise(pt_bvh, parts, ref64, device, smi):
     # The bounce loop over the full kernel: the same Sobol paths as over the
     # lean tracer, up to the f16 normals of its table, which move a glossy
     # bounce by 2e-3 and so a few paths to another surface (means within
-    # 0.5%, at least 90% of pixels within 2e-2). K1's wrapper takes the
-    # live count as a host int, so each bounce after the first costs a host
-    # sync, which K2's path does not; K3 in full mode reads it from device
-    # memory as K2 does. Over the quantized layout the paths are K1's up to
-    # the moved vertices (mean within 0.5% of the lean tracer's).
+    # 0.5%, at least 90% of pixels within 2e-2). K1 and K3 read the live
+    # count from device memory as K2 does, so neither frame makes more host
+    # syncs than the lean tracer's. Over the quantized layout the paths are
+    # K1's up to the moved vertices (mean within 0.5% of the lean tracer's).
     import warnings
 
     def sobol_frame(tr, st):
@@ -1029,6 +1088,8 @@ def phase_denoise(pt_bvh, parts, ref64, device, smi):
             f"{m_lean:.5f} / {m_full:.5f}, pixels within 2e-2 {close:.4f}")
     if full["launches"].get("K1", 0) == 0 or abs(m_full - m_lean) > STAT_RTOL * m_lean or close < 0.9:
         raise AssertionError(f"the frame over the full kernel is not the lean tracer's: {text}")
+    if full["syncs"] > lean["syncs"]:
+        raise AssertionError(f"the frame over K1 makes more host syncs than over K2: {text}")
     log("14 denoise", text)
     quant = counted["quantized"]
     m_q = quant["img"][..., :3].mean().item()
@@ -1037,7 +1098,8 @@ def phase_denoise(pt_bvh, parts, ref64, device, smi):
             f"syncs, launches {quant['launches']} | mean {m_q:.5f} (lean {m_lean:.5f}, K1 {m_full:.5f}), pixels within "
             f"2e-2 of K1's {close_q:.4f}")
     if (quant["launches"].get("K3 full", 0) == 0 or set(quant["launches"]) != {"K3 full"}
-            or abs(m_q - m_lean) > STAT_RTOL * m_lean or not bool(torch.isfinite(quant["img"]).all())):
+            or abs(m_q - m_lean) > STAT_RTOL * m_lean or not bool(torch.isfinite(quant["img"]).all())
+            or quant["syncs"] > lean["syncs"]):
         raise AssertionError(f"the frame over K3 in full mode is not the lean tracer's: {text}")
     log("14 denoise", text)
     del counted, lean, full, quant, full_tracer, full_scene, q_tracer, q_scene
@@ -2583,9 +2645,10 @@ sys.exit(smoke.installed_check(*sys.argv[2:]))
 def installed_check(site, out) -> int:
     """Phase 28's subprocess: builds K1-K5's three libraries and the native
     library from the installed package's sources, checks that each lands in
-    the user's cache, launches K1, K3 (full) and K4 once each against their
-    plain versions, and saves the native tree of ``make_atrium(0)`` to
-    ``out/tree.npz``. Prints one JSON line last."""
+    the user's cache, caches a scene through ``tools/common.py::cached_scene``
+    and checks that it lands there too, launches K1, K3 (full) and K4 once
+    each against their plain versions, and saves the native tree of
+    ``make_atrium(0)`` to ``out/tree.npz``. Prints one JSON line last."""
     import os
     from concurrent.futures import ThreadPoolExecutor
 
@@ -2596,6 +2659,7 @@ def installed_check(site, out) -> int:
     from minipath_tpu_torch.scene import procedural
     from minipath_tpu_torch.scene.bvh import native
     from minipath_tpu_torch.scene.triangle_bvh import TriangleBvh
+    from minipath_tpu_torch.tools import common
     from minipath_tpu_torch.utils import calibrate, cuda_build
 
     package = Path(minipath_tpu_torch.__file__).parent
@@ -2618,6 +2682,17 @@ def installed_check(site, out) -> int:
         log("28 installed", f"{name}: built in {seconds:.2f} s into {path}")
         if path.parent != cache or not path.exists() or not seconds > 0:
             raise AssertionError(f"{name} was not built into {cache}: {path}")
+
+    # A scene cached by the tools' builder goes to the user's cache, and
+    # nothing new lands beside the package.
+    site_before = sorted(p.name for p in Path(site).iterdir())
+    scene_cache = cache / "bench_cache"
+    first, again = (common.cached_scene("atrium", 0, materials=False, leaf_max=24) for _ in range(2))
+    cached = sorted(p.name for p in scene_cache.iterdir())
+    log("28 installed", f"cached_scene from the installation: {cached} in {scene_cache}; read back {again.cached}")
+    if (cuda_build.bench_cache_dir() != scene_cache or first.cached or not again.cached
+            or cached != ["atrium_0_plain_leaf24.npz"] or sorted(p.name for p in Path(site).iterdir()) != site_before):
+        raise AssertionError(f"the installation cached its scene in {cuda_build.bench_cache_dir()}: {cached}")
 
     device = torch.device("cuda", 0)
     mesh = procedural.make_atrium(0)

@@ -37,8 +37,10 @@ Where it departs from the JAX bench:
   but the run exits 1. Nothing is reported as a number in its place.
 * The layout's bytes take the place of the TPU's VMEM figures (``scene_mb``,
   and ``scene_budget_mb`` from ``scene/triangle_bvh.py``).
-* Scenes are cached under ``.bench_cache/torch/``; the extra artifact is
-  written only to the path given with ``--out``.
+* Scenes are cached in ``utils/cuda_build.py::bench_cache_dir()``: the
+  repository's ``.bench_cache/torch/`` in a checkout,
+  ``$XDG_CACHE_HOME/minipath_tpu_torch/bench_cache`` in an installation. The
+  extra artifact is written only to the path given with ``--out``.
 * ``--device`` defaults to ``cuda``; without a card the run fails at once.
 
 The last line of stdout has the JAX bench's keys: ``metric``, ``value``
@@ -68,6 +70,7 @@ from minipath_tpu_torch.render.kernels import prepare_scene, prepare_scene_pt
 from minipath_tpu_torch.render.kernels_q import QPTScene, prepare_scene_qpt, prepare_scene_quantized, trace_scene
 from minipath_tpu_torch.render.wavefront import make_pt_shadow_tracer, make_pt_tracer, render_frame_pt
 from minipath_tpu_torch.scene.bvh.build import BuildResult, BvhArrays, from_numpy
+from minipath_tpu_torch.utils import cuda_build
 
 WIDTH, HEIGHT, SPP = 1920, 1080, 64
 SAMPLES_PER_PACKET = 32
@@ -96,7 +99,6 @@ FRAMES = {
     "pt_1080p64_nee_capped": 2,
     "pt_big": 2,
 }
-CACHE = Path(__file__).resolve().parent.parent / ".bench_cache" / "torch"
 
 
 def log(*a):
@@ -125,8 +127,8 @@ def build_obj_scene(n_triangles: int) -> BuildResult:
     from minipath_tpu_torch.scene.procedural import make_atrium
     from minipath_tpu_torch.scene.triangle_bvh import TriangleBvh
 
-    CACHE.mkdir(parents=True, exist_ok=True)
-    path = CACHE / f"atrium_obj_{n_triangles}.npz"
+    cache = cuda_build.bench_cache_dir()
+    path = cache / f"atrium_obj_{n_triangles}.npz"
     if path.exists():
         log(f"loading cached {n_triangles}-triangle atrium BVH")
         data = np.load(path)
@@ -136,7 +138,7 @@ def build_obj_scene(n_triangles: int) -> BuildResult:
             vertex_count=int(data["meta_verts"]),
             max_depth=int(data["meta_depth"]),
         )
-    obj_path = CACHE / f"atrium_{n_triangles}.obj"
+    obj_path = cache / f"atrium_{n_triangles}.obj"
     if not obj_path.exists():
         t0 = time.perf_counter()
         mesh = make_atrium(n_triangles)
@@ -158,8 +160,7 @@ def build_pt_scene():
     from minipath_tpu_torch.scene.materials import MaterialTable, material_table
     from minipath_tpu_torch.scene.procedural import atrium_materials, make_atrium
 
-    CACHE.mkdir(parents=True, exist_ok=True)
-    path = CACHE / f"atrium_pt_{ATRIUM_TRIANGLES}.npz"
+    path = cuda_build.bench_cache_dir() / f"atrium_pt_{ATRIUM_TRIANGLES}.npz"
     if path.exists():
         log("loading cached PT atrium BVH")
         data = np.load(path)

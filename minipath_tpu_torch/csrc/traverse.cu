@@ -51,9 +51,8 @@ struct TraceArgs {
   int root;                // used where `roots` is null
   const int* roots;        // (B,) per-packet roots, or null
   // Live packets as one i32 in device memory (read by the kernel, so the
-  // caller needs no host sync), or null: then `live_rays` is the bound.
+  // caller needs no host sync), or null: every packet is live.
   const int* live_packets;
-  int64_t live_rays;
   const float* rays9;
   int64_t n_rays;
   int P;
@@ -92,7 +91,7 @@ __global__ void __launch_bounds__(MP_BLOCK, MP_MIN_BLOCKS) traverse_kernel(const
     const float iz = fminf(fmaxf(__ldg(r + 8 * P), -1e30f), 1e30f);
 
     const int root = a.roots ? __ldg(a.roots + b) : a.root;
-    const bool live = a.live_packets ? b < (int64_t)__ldg(a.live_packets) : ray < a.live_rays;
+    const bool live = !a.live_packets || b < (int64_t)__ldg(a.live_packets);
 
     // Entry = {link (as float bits), t_entry}: one 8-byte local access.
     float2 stack[MP_STACK_CAPACITY];
@@ -258,21 +257,23 @@ int mp_stack_capacity() { return MP_STACK_CAPACITY; }
 
 const char* mp_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// K1: full closest-hit. Launches on `stream` and returns the launch's
-// cudaError_t (0 on success). `counters` is (B, 3) i32, zeroed by the caller.
+// K1: full closest-hit. `live_packets` is one i32 in device memory or null
+// (every packet live), as in K2. Launches on `stream` and returns the
+// launch's cudaError_t (0 on success). `counters` is (B, 3) i32, zeroed by
+// the caller.
 int mp_trace_packets(const void* node_box, const void* node_links,
                      const void* tri_data, const void* tri_shade, int root,
-                     const void* rays9, int64_t n_rays, int64_t live_rays,
-                     int P, int stack_size, float t_max, void* t_out,
-                     void* tri_out, void* normal_out, void* mat_out,
-                     void* counters, void* stream) {
+                     const void* live_packets, const void* rays9,
+                     int64_t n_rays, int P, int stack_size, float t_max,
+                     void* t_out, void* tri_out, void* normal_out,
+                     void* mat_out, void* counters, void* stream) {
   TraceArgs a{};
   a.node_box = (const float*)node_box;
   a.node_links = (const int*)node_links;
   a.tri_data = (const float*)tri_data;
   a.tri_shade = (const float*)tri_shade;
   a.root = root;
-  a.live_rays = live_rays;
+  a.live_packets = (const int*)live_packets;
   a.rays9 = (const float*)rays9;
   a.n_rays = n_rays;
   a.P = P;
@@ -303,7 +304,6 @@ int mp_trace_packets_pt(const void* node_box, const void* node_links,
   a.root = root;
   a.roots = (const int*)roots;
   a.live_packets = (const int*)live_packets;
-  a.live_rays = n_rays;
   a.rays9 = (const float*)rays9;
   a.n_rays = n_rays;
   a.P = P;

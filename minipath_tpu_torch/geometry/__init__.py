@@ -9,8 +9,13 @@ from minipath_tpu_torch.geometry.aabb import AABB, slab_test
 from minipath_tpu_torch.geometry.ray import Rays, make_rays
 from minipath_tpu_torch.geometry.triangle import barycentric_interpolate, moller_trumbore, triangle_geometric_normal
 
+# Error tolerance for general purpose calculations in the raytracer
+# (``minipath/src/geometry/mod.rs:15``).
+EPSILON = 1e-6
+
 __all__ = [
     "AABB",
+    "EPSILON",
     "Rays",
     "barycentric_interpolate",
     "make_rays",

@@ -1,11 +1,11 @@
 """Whole-frame parity renderer on the traversal kernel.
 
 Port of ``minipath_tpu/render/frame.py`` (``render_frame_pallas``,
-``make_frame_renderer_sharded``) together with the ray generation they call
-in ``minipath_tpu/parallel/mesh.py`` (``gen_rays9_blocks``,
-``gen_frame_rays9``, ``unpack_frame``). One chunk of samples at a time:
-camera rays for every pixel block, one trace, parity shading (grayscale
-``|d.n|``, alpha on hit), and a sum on the device.
+``make_frame_renderer_sharded``, ``rays9_to_rays``) together with the ray
+generation they call in ``minipath_tpu/parallel/mesh.py``
+(``gen_rays9_blocks``, ``gen_frame_rays9``, ``unpack_frame``). One chunk of
+samples at a time: camera rays for every pixel block, one trace, parity
+shading (grayscale ``|d.n|``, alpha on hit), and a sum on the device.
 
 Packets are multi-sample: a ``px_block`` pixel tile repeated for each sample
 of the chunk, sample-major. The kernel traces one ray per thread, so the
@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from minipath_tpu_torch.camera import CameraSampler, sample_rays
+from minipath_tpu_torch.geometry.ray import Rays
 from minipath_tpu_torch.parallel import replicate, shard_generators, shard_ranges
 from minipath_tpu_torch.render.kernels import KernelHits, KernelScene, rays_to_rays9
 from minipath_tpu_torch.render.kernels_q import QuantizedScene, trace_scene
@@ -128,12 +129,18 @@ def unpack_frame(rgba: torch.Tensor, width: int, height: int, packet_counts, pac
     return v[:height, :width]
 
 
+def rays9_to_rays(rays9: torch.Tensor) -> Rays:
+    """Inverse of ``render/kernels.py::rays_to_rays9``: ``(B, 9, P)`` ->
+    :class:`Rays` with ``(B, P, 3)`` fields, views of ``rays9``."""
+    r = rays9.transpose(1, 2)  # (B, P, 9)
+    return Rays(origin=r[..., 0:3], direction=r[..., 3:6], inv_direction=r[..., 6:9])
+
+
 def shade_parity_sum(rays9: torch.Tensor, kh: KernelHits, samples: int) -> torch.Tensor:
     """Parity shading from kernel outputs (``worker.rs:59-64``: grayscale
     ``|d.n|`` with alpha on hit, transparent miss). Returns ``(B, bp, 4)``
     RGBA sums over the sample-major packet dimension."""
-    direction = rays9[:, 3:6, :].transpose(1, 2)  # (B, P, 3)
-    dot = torch.abs(torch.sum(direction * kh.normal, dim=-1))
+    dot = torch.abs(torch.sum(rays9_to_rays(rays9).direction * kh.normal, dim=-1))
     hit = (kh.tri >= 0).to(torch.float32)
     shaded = dot * hit
     rgba = torch.stack([shaded, shaded, shaded, hit], dim=-1)  # (B, P, 4)

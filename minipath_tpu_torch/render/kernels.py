@@ -282,11 +282,6 @@ _K1_ROWS = (
 _K2_ROWS = _K1_ROWS[:3]
 
 
-def _live_rays(live_packets, B: int, P: int) -> int:
-    live = B if live_packets is None else int(live_packets)
-    return max(0, min(B, live)) * P
-
-
 def trace_packets(
     scene: KernelScene,
     rays9: torch.Tensor,
@@ -297,9 +292,13 @@ def trace_packets(
 ) -> KernelHits:
     """K1: closest-hit trace of ``rays9`` ``(B, 9, P)`` against ``scene``.
 
+    ``live_packets`` is None (all live), an int, or a one-element integer
+    tensor on the rays' device, which the kernel reads itself, so the
+    caller makes no host sync; packets at index ``>= live_packets`` write
+    miss outputs without traversal.
+
     On CUDA tensors this launches the kernel (and raises if it cannot); on
-    CPU tensors it runs :func:`trace_packets_reference`. Packets at index
-    ``>= live_packets`` (an int) write miss outputs without traversal.
+    CPU tensors it runs :func:`trace_packets_reference`.
     ``stack_size`` at most :data:`STACK_CAPACITY`; use the build's
     ``recommended_stack_size`` for a result with zero overflow.
     ``trace_packets.launches`` counts kernel launches.
@@ -315,6 +314,25 @@ def trace_packets(
 
 
 trace_packets.launches = 0
+
+
+def intersect_bvh(bvh: BvhArrays, scene: KernelScene, rays: Rays, *, stack_size: int = 96, t_max: float = math.inf):
+    """Closest hits of ``rays`` (``(B, P, 3)`` fields) traced by K1
+    (:func:`trace_packets`) and finalized by the portable engine's
+    ``render/traversal.py::finalize_hits`` over ``bvh``, the tree that
+    ``scene`` was prepared from: the counterpart of the JAX package's
+    ``intersect_bvh_pallas``. Returns ``render/hit.py``'s ``HitRecords``,
+    the contract of an object's ``intersect``."""
+    from minipath_tpu_torch.render.traversal import TraceResult, finalize_hits
+
+    kh = trace_packets(scene, rays_to_rays9(rays), stack_size=stack_size, t_max=t_max)
+    result = TraceResult(
+        t=torch.where(kh.tri < 0, math.inf, kh.t),
+        tri=kh.tri,
+        steps=torch.zeros((), dtype=torch.int32, device=kh.t.device),
+        overflow=kh.overflow.sum(),
+    )
+    return finalize_hits(bvh, rays, result)
 
 
 def trace_packets_pt(
@@ -369,7 +387,7 @@ def load_library():
     if lib.mp_trace_packets.argtypes is None:
         vp, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
         lib.mp_trace_packets.argtypes = [
-            vp, vp, vp, vp, i32, vp, i64, i64, i32, i32, f32,
+            vp, vp, vp, vp, i32, vp, vp, i64, i32, i32, f32,
             vp, vp, vp, vp, vp, vp,
         ]
         lib.mp_trace_packets.restype = i32
@@ -416,6 +434,7 @@ def _launch(scene, rays9, stack_size, t_max, live_packets) -> KernelHits:
     B, _, P = rays9.shape
     dev = rays9.device
     _aligned(scene.node_box, scene.node_links, scene.tri_data, scene.tri_shade, rays9)
+    live = _live_count(live_packets, dev)
     t = torch.empty((B, P), dtype=torch.float32, device=dev)
     tri = torch.empty((B, P), dtype=torch.int32, device=dev)
     normal = torch.empty((B, P, 3), dtype=torch.float32, device=dev)
@@ -428,9 +447,9 @@ def _launch(scene, rays9, stack_size, t_max, live_packets) -> KernelHits:
             scene.tri_data.data_ptr(),
             scene.tri_shade.data_ptr(),
             scene.root,
+            None if live is None else live.data_ptr(),
             rays9.data_ptr(),
             B * P,
-            _live_rays(live_packets, B, P),
             P,
             stack_size,
             float(t_max),

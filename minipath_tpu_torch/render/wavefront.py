@@ -38,7 +38,7 @@ import torch
 from minipath_tpu_torch.camera import CameraSampler
 from minipath_tpu_torch.geometry.ray import Rays
 from minipath_tpu_torch.parallel import replicate, shard_generators, shard_ranges
-from minipath_tpu_torch.render.frame import gen_frame_rays9, gen_rays9_blocks, unpack_frame
+from minipath_tpu_torch.render.frame import gen_frame_rays9, gen_rays9_blocks, rays9_to_rays, unpack_frame
 from minipath_tpu_torch.render.kernels import KernelHits, KernelScene, PTHits, PTScene, trace_packets_pt
 from minipath_tpu_torch.render.kernels_q import QPTScene, QuantizedScene, trace_packets_q, trace_scene
 from minipath_tpu_torch.render.stratify import render_seed, strat1d, strat2d
@@ -339,8 +339,7 @@ def make_portable_tracer(arrays: BvhArrays, *, stack_size: int, packet_size: int
 def _packets(packet_size: int, origin, direction, inv_direction) -> Rays:
     """``(N, 3)`` rays as ``(B, packet_size, 3)`` packets, padded as
     :func:`_pack_rays9` pads them."""
-    r9, _, _ = _pack_rays9(packet_size, None, origin, direction, inv_direction)
-    return Rays(*(r9[:, i : i + 3].transpose(1, 2) for i in (0, 3, 6)))
+    return rays9_to_rays(_pack_rays9(packet_size, None, origin, direction, inv_direction)[0])
 
 
 def make_full_tracer(scene: KernelScene | QuantizedScene, *, stack_size: int, packet_size: int = 2048):
@@ -352,9 +351,7 @@ def make_full_tracer(scene: KernelScene | QuantizedScene, *, stack_size: int, pa
 
     Same contract as :func:`make_pt_tracer`: returns ``(tracer, scene)``
     with ``tracer(scene, origin, direction, inv_direction, live_rays=None)
-    -> KernelHits`` over ``(N, 3)`` rays. Over the f32 layout a ``live_rays``
-    device tensor costs one host sync a call: K1's wrapper takes the live
-    count as a host int, where K2 and K3 read it from device memory.
+    -> KernelHits`` over ``(N, 3)`` rays.
     """
 
     def tracer(state: KernelScene | QuantizedScene, origin, direction, inv_direction, live_rays=None) -> KernelHits:

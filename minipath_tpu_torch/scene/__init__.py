@@ -5,16 +5,32 @@ Mirrors the reference's ``scene`` module surface
 renderable object: a
 :class:`~minipath_tpu_torch.scene.triangle_bvh.TriangleBvh` or the analytic
 :class:`~minipath_tpu_torch.scene.primitives.Sphere`. Objects implement
-``intersect`` over batched rays plus ``get_bounding_box``.
+the :class:`Object` protocol: ``intersect`` over batched rays plus
+``get_bounding_box``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Protocol, runtime_checkable
+
+from minipath_tpu_torch.geometry.aabb import AABB
+
+
+@runtime_checkable
+class Object(Protocol):
+    """Renderable object (the batched ``Object`` trait of ``scene/mod.rs:7-10``)."""
+
+    def intersect(self, rays, t_max):
+        """Closest-hit intersection over a batch of rays; returns
+        :class:`minipath_tpu_torch.render.hit.HitRecords`."""
+        ...
+
+    def get_bounding_box(self) -> AABB: ...
 
 
 @dataclass
 class Scene:
     """A scene holding exactly one object (``scene/mod.rs:13-15``)."""
 
-    object: object
+    object: Object

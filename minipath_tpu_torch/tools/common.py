@@ -66,7 +66,7 @@ def emit(out: dict, path: Path | None) -> None:
 def build_scene(device: torch.device):
     """The 250k-triangle atrium with its materials as the path tracer's tools
     trace it: the native builder, leaves of up to 24 triangles (the bench's
-    ``build_pt_scene``, cached under ``.bench_cache/torch/``). Returns
+    ``build_pt_scene``, cached in ``bench_cache_dir()``). Returns
     ``(host BvhArrays, MaterialTable on device, stack size)``."""
     from minipath_tpu_torch import bench
     from minipath_tpu_torch.scene.materials import table_from_numpy
@@ -134,21 +134,23 @@ def cached_scene(kind: str, n_triangles: int, *, materials: bool, leaf_max: int,
     without, built with leaves of up to ``leaf_max`` triangles by
     ``builder``: ``"native"`` (the C++ builder; the Python one where ``g++``
     is missing), ``"python"`` (the binned-SAH NumPy builder) or ``"sbvh"``
-    (the NumPy builder with spatial splits); cached uncompressed under
-    ``.bench_cache/torch/`` (``bench.CACHE``): a second run loads it."""
+    (the NumPy builder with spatial splits); cached uncompressed in
+    ``utils/cuda_build.py::bench_cache_dir()`` (``.bench_cache/torch/`` in a
+    checkout, the user's cache in an installation): a second run loads it."""
     from minipath_tpu_torch import bench
     from minipath_tpu_torch.scene import procedural
     from minipath_tpu_torch.scene.bvh import native
     from minipath_tpu_torch.scene.bvh.build import BuildResult, build_bvh
     from minipath_tpu_torch.scene.materials import MaterialTable, material_table
     from minipath_tpu_torch.scene.triangle_bvh import TriangleBvh
+    from minipath_tpu_torch.utils import cuda_build
 
     make_mesh, make_materials = (getattr(procedural, f) for f in SCENES[kind])
-    bench.CACHE.mkdir(parents=True, exist_ok=True)
     if builder not in ("native", "python", "sbvh"):
         raise ValueError(f"builder {builder!r}")
     tree = "" if builder == "native" else f"_{builder}"
-    path = bench.CACHE / f"{kind}_{n_triangles}_{'mats' if materials else 'plain'}_leaf{leaf_max}{tree}.npz"
+    name = f"{kind}_{n_triangles}_{'mats' if materials else 'plain'}_leaf{leaf_max}{tree}.npz"
+    path = cuda_build.bench_cache_dir() / name
     if path.exists():
         data = np.load(path)
         result = BuildResult(arrays=bench._arrays(data), triangle_count=int(data["meta_tris"]),

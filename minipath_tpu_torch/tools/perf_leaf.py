@@ -3,8 +3,8 @@
 Port of ``tools/perf_leaf.py``. For each ``leaf_max`` in :data:`LEAVES`
 (56, the format's limit, down to 8), the 250k-triangle atrium is built with
 leaves of up to that many triangles by the native builder (the one the CLI
-and the bench use; the JAX tool used the Python builder), cached under
-``.bench_cache/torch/``, and traced by K1 over the benchmark camera's
+and the bench use; the JAX tool used the Python builder), cached in
+``bench_cache_dir()`` (``utils/cuda_build.py``), and traced by K1 over the benchmark camera's
 1920x1080 @ 32 spp camera rays (one ``gen_frame_rays9`` dispatch, 16x16
 pixel packets, 66.8M rays): one warm-up launch, then the best of
 :data:`TRACE_REPS` timed by CUDA events. A row reports the build's seconds

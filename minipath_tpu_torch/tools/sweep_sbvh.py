@@ -2,8 +2,8 @@
 tracer's real bounce wavefronts.
 
 Port of ``tools/sweep_sbvh.py``. The atrium with its materials (250k
-triangles, leaves of up to 24) is built twice, each cached under
-``.bench_cache/torch/``: by the native builder, as the path tracer's tools
+triangles, leaves of up to 24) is built twice, each cached in
+``bench_cache_dir()`` (``utils/cuda_build.py``): by the native builder, as the path tracer's tools
 build it, and by the NumPy builder with spatial splits, which clips
 triangles into several leaves where that shrinks the boxes
 (``build_bvh(spatial_splits=True)``; the JAX package leaves it off by

@@ -6,9 +6,9 @@ that a random ray through the root box enters it) and counts what entering
 it costs: 8 box tests for an inner child, and for a leaf one pop and 8
 triangle tests a packet. It compares the 250k-triangle atrium's native
 build with the Python (binned-SAH) build, both with leaves of up to 24
-triangles, each cached under ``.bench_cache/torch/``. The gate: each tree
-holds every triangle (its leaves' lanes count the mesh's triangles), so
-that a tree cannot score lower by losing some.
+triangles, each cached in ``utils/cuda_build.py::bench_cache_dir()``. The
+gate: each tree holds every triangle (its leaves' lanes count the mesh's
+triangles), so that a tree cannot score lower by losing some.
 
 It runs on the host, in NumPy; ``--device`` keeps the tools' convention
 (``cuda`` without a card exits 2). The JAX tool printed its rows; ``--out``

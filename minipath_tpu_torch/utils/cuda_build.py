@@ -24,6 +24,9 @@ from pathlib import Path
 
 # The package's own build directory, used where it can be written.
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+# The directory that holds the package: in a checkout, the repository's root;
+# in an installation, the site directory.
+ROOT = BUILD_DIR.parent.parent
 
 # No --use_fast_math: the kernels rely on IEEE division and square root.
 # -fmad=false keeps multiply and add as separately rounded steps, so a kernel
@@ -86,7 +89,28 @@ def build_dir() -> Path:
     if _writable(BUILD_DIR if BUILD_DIR.exists() else BUILD_DIR.parent):
         out = BUILD_DIR
     else:
-        out = Path(os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache") / "minipath_tpu_torch"
+        out = _user_cache()
+    out.mkdir(parents=True, exist_ok=True)
+    return out
+
+
+def _user_cache() -> Path:
+    return Path(os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache") / "minipath_tpu_torch"
+
+
+def bench_cache_dir() -> Path:
+    """Where the bench and the tools cache the scenes they build. In a
+    checkout, the repository's ``.bench_cache/torch/`` (``.gitignore`` lists
+    it); in an installation, ``$XDG_CACHE_HOME/minipath_tpu_torch/bench_cache``
+    (``~/.cache/...`` where that variable is unset). A checkout is told by
+    its mark, the repository's ``pyproject.toml`` beside the package, which
+    an installation does not carry; whether the site directory can be
+    written tells nothing, since a virtual environment's can. The directory
+    is created if missing."""
+    if (ROOT / "pyproject.toml").is_file():
+        out = ROOT / ".bench_cache" / "torch"
+    else:
+        out = _user_cache() / "bench_cache"
     out.mkdir(parents=True, exist_ok=True)
     return out
 

@@ -19,11 +19,11 @@ import pytest
 import torch
 
 from minipath_tpu_torch import bench
-from minipath_tpu_torch.utils import calibrate
+from minipath_tpu_torch.utils import calibrate, cuda_build
 
 REPO = Path(__file__).resolve().parent.parent
 RUNG_NAMES = [name for name, _ in bench.RUNGS]
-DEFAULT_CACHE = bench.CACHE
+DEFAULT_CACHE = cuda_build.bench_cache_dir
 # The last line of the JAX bench (bench.py:587-611).
 JAX_KEYS = [
     "metric", "value", "unit", "vs_baseline",
@@ -41,7 +41,7 @@ def cache_dir(tmp_path_factory):
 
 @pytest.fixture
 def tiny(monkeypatch, cache_dir):
-    monkeypatch.setattr(bench, "CACHE", cache_dir)
+    monkeypatch.setattr(cuda_build, "bench_cache_dir", lambda: cache_dir)
     monkeypatch.setattr(bench, "WIDTH", 48)
     monkeypatch.setattr(bench, "HEIGHT", 32)
     monkeypatch.setattr(bench, "SPP", 2)
@@ -198,7 +198,7 @@ def test_no_card_fails_at_once(monkeypatch, capsys):
 def test_the_cache_is_the_ports_own(tiny, cache_dir):
     """Scenes are cached under ``.bench_cache/torch/``, never in the JAX
     bench's files beside it, and a second build reads the cache."""
-    assert DEFAULT_CACHE == REPO / ".bench_cache" / "torch"
+    assert DEFAULT_CACHE() == REPO / ".bench_cache" / "torch"
     first = bench.build_obj_scene(2000)
     assert (cache_dir / "atrium_obj_2000.npz").exists() and (cache_dir / "atrium_2000.obj").exists()
     again = bench.build_obj_scene(2000)

@@ -103,6 +103,47 @@ def test_overflow_t_max_and_live_prefix_match(cuda, atrium):
     assert int(kernels.trace_packets(scene, r9, stack_size=2).overflow.min()) > 0
 
 
+# The live count's forms and edge counts, each with the count as an int, for
+# B = 8 packets (``tests/test_torch_kernels.py::LIVE_COUNTS`` on the CPU).
+LIVE_COUNTS = {
+    "none": (lambda dev: None, 8),
+    "int": (lambda dev: 3, 3),
+    "int32 tensor": (lambda dev: torch.tensor([3], dtype=torch.int32, device=dev), 3),
+    "int64 tensor": (lambda dev: torch.tensor(3, dtype=torch.int64, device=dev), 3),
+    "zero": (lambda dev: torch.tensor([0], dtype=torch.int32, device=dev), 0),
+    "negative": (lambda dev: torch.tensor([-3], dtype=torch.int32, device=dev), -3),
+    "above B": (lambda dev: torch.tensor([11], dtype=torch.int32, device=dev), 11),
+}
+
+
+@pytest.mark.parametrize("case", list(LIVE_COUNTS))
+def test_live_count_on_the_device_makes_no_host_sync(cuda, atrium, case):
+    """K1 reads its live count from device memory: a launch makes no host
+    sync, and its hits equal those of the count given as an int bit for bit,
+    and the plain version's."""
+    make, count = LIVE_COUNTS[case]
+    scene = atrium.kernel_scene(cuda)
+    r9 = _incoherent(atrium, cuda, B=8, seed=2)
+    ss = atrium.recommended_stack_size
+    live = make(cuda)
+    kernels.trace_packets(scene, r9, stack_size=ss)  # builds and loads the library
+    torch.cuda.synchronize()
+    before = kernels.trace_packets.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = kernels.trace_packets(scene, r9, stack_size=ss, live_packets=live)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert kernels.trace_packets.launches == before + 1
+    as_int = kernels.trace_packets(scene, r9, stack_size=ss, live_packets=count)
+    for name in ("t", "tri", "normal", "material", "overflow", "inner_visits", "leaf_tests"):
+        assert torch.equal(getattr(got, name), getattr(as_int, name)), name
+    _assert_same(got, kernels.trace_packets_reference(scene, r9, stack_size=ss, live_packets=live))
+    n = max(0, min(8, count))
+    assert torch.all(got.tri[n:] == -1) and torch.all(got.inner_visits[n:] == 0)
+    assert bool((got.tri[:n] >= 0).any()) == (n > 0)
+
+
 def _tie_rays9(device, B=8):
     o, d = procedural.tie_lattice_rays(count=B * 256, seed=4)
     rays = make_rays(torch.from_numpy(o).view(B, 256, 3).to(device), torch.from_numpy(d).view(B, 256, 3).to(device))

@@ -127,16 +127,39 @@ def test_tiny_stack_overflows_on_both_sides(random_scene, rng):
     assert np.all(np.asarray(want.overflow) > 0)
 
 
-def test_live_packets_prefix(random_scene, rng):
+# The forms a live count takes (None, an int, a one-element integer tensor on
+# the rays' device) and the counts at its edges, with the count as an int;
+# the rays come in B = 4 packets.
+LIVE_COUNTS = {
+    "none": (None, 4),
+    "int": (2, 2),
+    "int32 tensor": (torch.tensor([2], dtype=torch.int32), 2),
+    "int64 tensor": (torch.tensor(2, dtype=torch.int64), 2),
+    "zero": (0, 0),
+    "negative": (-3, -3),
+    "above B": (7, 7),
+}
+
+
+@pytest.mark.parametrize("case", list(LIVE_COUNTS))
+def test_live_packets_prefix(random_scene, rng, case):
+    """Packets at index ``>= live_packets`` write misses without traversal,
+    whatever form the count takes: each form gives the int path's hits bit
+    for bit and the JAX kernel's, whose count is a traced scalar."""
+    live, count = LIVE_COUNTS[case]
     res, jscene, tscene = random_scene
     r9, jr9 = _rays9(*_incoherent(rng))
     ss = res.recommended_stack_size
-    got = kernels.trace_packets(tscene, r9, stack_size=ss, t_max=30.0, live_packets=2)
-    want = trace_packets_pallas(jscene, jr9, stack_size=ss, t_max=30.0, interpret=True, live_packets=2)
+    got = kernels.trace_packets(tscene, r9, stack_size=ss, t_max=30.0, live_packets=live)
+    want = trace_packets_pallas(jscene, jr9, stack_size=ss, t_max=30.0, interpret=True, live_packets=count)
     _compare(got, want)
-    assert np.all(got.tri.numpy()[2:] == -1) and np.all(got.t.numpy()[2:] == 30.0)
-    assert np.all(got.inner_visits.numpy()[2:] == 0)
-    assert (got.tri.numpy()[:2] >= 0).any()
+    as_int = kernels.trace_packets(tscene, r9, stack_size=ss, t_max=30.0, live_packets=count)
+    for field in ("t", "tri", "normal", "material", "overflow", "inner_visits", "leaf_tests"):
+        assert torch.equal(getattr(got, field), getattr(as_int, field)), field
+    n = max(0, min(4, count))
+    assert np.all(got.tri.numpy()[n:] == -1) and np.all(got.t.numpy()[n:] == 30.0)
+    assert np.all(got.inner_visits.numpy()[n:] == 0) and np.all(got.leaf_tests.numpy()[n:] == 0)
+    assert (got.tri.numpy()[:n] >= 0).any() == (n > 0)
 
 
 def test_stack_size_above_capacity_raises(random_scene, rng):

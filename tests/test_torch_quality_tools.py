@@ -33,13 +33,13 @@ from minipath_tpu.scene import materials as jm
 from minipath_tpu.scene import procedural as jax_procedural
 from minipath_tpu.scene.bvh.build import BvhArrays as JaxBvhArrays
 from minipath_tpu.scene.bvh.build import build_bvh as jax_build_bvh
-from minipath_tpu_torch import bench
 from minipath_tpu_torch.camera import CameraSampler
 from minipath_tpu_torch.render import kernels, kernels_q
 from minipath_tpu_torch.render import wavefront as tw
 from minipath_tpu_torch.scene import materials as tm
 from minipath_tpu_torch.scene.bvh.build import from_numpy
 from minipath_tpu_torch.tools import bench_quality, common, demo_bigscene, demo_hugescene, parity_big
+from minipath_tpu_torch.utils import cuda_build
 from test_torch_tools import QUALITY_TINY
 
 W, H, SPP, BOUNCES = 32, 24, 16, 5
@@ -127,7 +127,9 @@ WRONG = {
 @pytest.mark.parametrize("name", list(WRONG))
 def test_gates_fail_on_a_wrong_engine(monkeypatch, tmp_path_factory, name):
     tool, size, break_engine = WRONG[name]
-    monkeypatch.setattr(bench, "CACHE", tmp_path_factory.getbasetemp() / "quality_tools_cache")
+    cache = tmp_path_factory.getbasetemp() / "quality_tools_cache"
+    cache.mkdir(exist_ok=True)
+    monkeypatch.setattr(cuda_build, "bench_cache_dir", lambda: cache)
     monkeypatch.setattr(demo_bigscene, "TIMED_FRAMES", 1)
     for key, value in QUALITY_TINY.items():
         monkeypatch.setattr(bench_quality, key, value)

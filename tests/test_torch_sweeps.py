@@ -40,6 +40,7 @@ from minipath_tpu_torch.tools import (
     sweep_sbvh,
     tree_quality,
 )
+from minipath_tpu_torch.utils import cuda_build
 from test_torch_tools import root_state
 
 REPO = Path(__file__).resolve().parent.parent
@@ -131,7 +132,7 @@ def cache_dir(tmp_path_factory):
 
 @pytest.fixture
 def tiny(monkeypatch, cache_dir):
-    monkeypatch.setattr(bench, "CACHE", cache_dir)
+    monkeypatch.setattr(cuda_build, "bench_cache_dir", lambda: cache_dir)
     monkeypatch.setattr(bench, "ATRIUM_TRIANGLES", 2000)
     monkeypatch.setattr(common, "MEAN_RTOL", TINY_MEAN_RTOL)
     for tool in (sweep_rr2, sweep_pt17, sweep_pt19):

@@ -33,7 +33,7 @@ from minipath_tpu_torch.tools import (
     parity_big,
     profile_pt_headline,
 )
-from minipath_tpu_torch.utils import calibrate
+from minipath_tpu_torch.utils import calibrate, cuda_build
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -136,7 +136,7 @@ def cache_dir(tmp_path_factory):
 
 @pytest.fixture
 def tiny(monkeypatch, cache_dir):
-    monkeypatch.setattr(bench, "CACHE", cache_dir)
+    monkeypatch.setattr(cuda_build, "bench_cache_dir", lambda: cache_dir)
     monkeypatch.setattr(bench, "ATRIUM_TRIANGLES", 2000)
     monkeypatch.setattr(bench_pt, "TIMED_FRAMES", 1)
     monkeypatch.setattr(isolate_qpt, "TIMED_FRAMES", 1)

@@ -28,6 +28,10 @@ than there are exits 2. ``--adaptive`` path traces with
 ``render_frame_pt_adaptive`` (a 2-spp pilot allocates the budget toward
 noisy pixel blocks); it is single-device, uses jittered strata, and leaves
 ``--denoise`` the fixed-sigma filter.
+
+``--trace-out PATH`` records the program's spans and counters
+(``utils/profiling.py``) for the run and writes them at exit as a Chrome
+trace, which opens beside a ``torch.profiler`` trace.
 """
 
 from __future__ import annotations
@@ -106,6 +110,8 @@ def build_parser() -> argparse.ArgumentParser:
                    "allocates the --spp budget toward noisy pixel blocks (unbiased; single-device; needs --spp >= 10)")
     p.add_argument("--clamp", type=float, default=None, metavar="L", help="path tracer: cap each sample's "
                    "radiance at L before averaging (firefly suppression; biased)")
+    p.add_argument("--trace-out", metavar="PATH", default=None, help="write the run's spans and counters as a "
+                   "Chrome trace to PATH")
     return p
 
 
@@ -133,7 +139,20 @@ def load_scene(args):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.trace_out is None:
+        return _run(args)
+    from minipath_tpu_torch.utils import profiling
 
+    profiling.enable()
+    try:
+        return _run(args)
+    finally:
+        profiling.disable()
+        profiling.export_chrome_trace(profiling.take(), args.trace_out)
+        print(f"saved {args.trace_out}", file=sys.stderr)
+
+
+def _run(args) -> int:
     from minipath_tpu_torch import Camera, RenderSettings, Scene, render
     from minipath_tpu_torch.utils.image import save_png
 

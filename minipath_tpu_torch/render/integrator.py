@@ -9,7 +9,8 @@ black. Port of the batched-tile renderers
 kernel), and of the portable one, ``render_tile_sum_bvh`` with
 ``render_tile_batch_bvh_xla`` (:func:`render_tile_batch_bvh_portable`,
 over ``render/traversal.py``); they operate on whole batches of tiles, each
-cut into pixel packets.
+cut into pixel packets. Each records its ray generation, trace and shading
+as the spans ``render.ray_gen``, ``render.trace`` and ``render.shade``.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from minipath_tpu_torch.render.kernels import KernelScene, rays_to_rays9
 from minipath_tpu_torch.render.kernels_q import QuantizedScene, trace_scene
 from minipath_tpu_torch.render.traversal import intersect_bvh
 from minipath_tpu_torch.scene.bvh.build import BvhArrays
+from minipath_tpu_torch.utils.profiling import span
 
 
 def shade_normal_dot(rays: Rays, hits: HitRecords) -> torch.Tensor:
@@ -125,18 +127,23 @@ def render_tile_batch_sphere(
     :func:`shade_normal_dot`. Returns ``(K, th, tw, 4)`` RGBA sums over
     ``spp`` samples. ``mesh`` as in :func:`render_tile_batch_bvh`."""
     K = tile_origins.shape[0]
-    rays = tile_batch_rays(
-        sampler, tile_origins, generator, strat_seed,
-        tile_shape=tile_shape, packet_shape=packet_shape, spp=spp,
-    )
+    with span("render.ray_gen"):
+        rays = tile_batch_rays(
+            sampler, tile_origins, generator, strat_seed,
+            tile_shape=tile_shape, packet_shape=packet_shape, spp=spp,
+        )
     nb, bp = rays.origin.shape[0] // K, rays.origin.shape[1] // spp
 
     def shade_sum(rays):
-        rgba = shade_normal_dot(rays, sphere.intersect(rays))  # (packets, spp*bp, 4)
-        return rgba.reshape(-1, spp, bp, 4).sum(dim=1)
+        with span("render.trace"):
+            hits = sphere.intersect(rays)
+        with span("render.shade"):
+            rgba = shade_normal_dot(rays, hits)  # (packets, spp*bp, 4)
+            return rgba.reshape(-1, spp, bp, 4).sum(dim=1)
 
     rgba_sum = shade_sum(rays) if mesh is None else map_shards(shade_sum, rays, mesh)
-    return unpack_tile(rgba_sum.reshape(K, nb, bp, 4), tile_shape, packet_shape)
+    with span("render.shade"):
+        return unpack_tile(rgba_sum.reshape(K, nb, bp, 4), tile_shape, packet_shape)
 
 
 def render_tile_batch_bvh(
@@ -161,17 +168,22 @@ def render_tile_batch_bvh(
     shades a contiguous share of the packets, and the image is the same bit
     for bit."""
     K = tile_origins.shape[0]
-    rays9 = tile_batch_rays9(
-        sampler, tile_origins, generator, strat_seed,
-        tile_shape=tile_shape, packet_shape=packet_shape, spp=spp,
-    )
+    with span("render.ray_gen"):
+        rays9 = tile_batch_rays9(
+            sampler, tile_origins, generator, strat_seed,
+            tile_shape=tile_shape, packet_shape=packet_shape, spp=spp,
+        )
     nb, bp = rays9.shape[0] // K, rays9.shape[2] // spp
 
     def trace_shade(rays9, scene):
-        return shade_parity_sum(rays9, trace_scene(scene, rays9, stack_size=stack_size), spp)  # (packets, bp, 4)
+        with span("render.trace"):
+            hits = trace_scene(scene, rays9, stack_size=stack_size)
+        with span("render.shade"):
+            return shade_parity_sum(rays9, hits, spp)  # (packets, bp, 4)
 
     rgba_sum = trace_shade(rays9, scene) if mesh is None else map_shards(trace_shade, rays9, mesh, scene)
-    return unpack_tile(rgba_sum.reshape(K, nb, bp, 4), tile_shape, packet_shape)
+    with span("render.shade"):
+        return unpack_tile(rgba_sum.reshape(K, nb, bp, 4), tile_shape, packet_shape)
 
 
 def render_tile_batch_bvh_portable(
@@ -197,16 +209,21 @@ def render_tile_batch_bvh_portable(
     the tree's replicas parallel to it, and each device traces a contiguous
     share of the packets: the image is the same bit for bit."""
     K = tile_origins.shape[0]
-    rays = tile_batch_rays(
-        sampler, tile_origins, generator, strat_seed,
-        tile_shape=tile_shape, packet_shape=packet_shape, spp=spp,
-    )
+    with span("render.ray_gen"):
+        rays = tile_batch_rays(
+            sampler, tile_origins, generator, strat_seed,
+            tile_shape=tile_shape, packet_shape=packet_shape, spp=spp,
+        )
     nb, bp = rays.origin.shape[0] // K, rays.origin.shape[1] // spp
 
     def trace_shade(rays, arrays):
         packets = Rays(*(f.reshape(-1, bp, 3) for f in rays))  # (packets * spp, bp, 3), sample-major
-        rgba = shade_normal_dot(packets, intersect_bvh(arrays, packets, stack_size=stack_size))
-        return rgba.reshape(-1, spp, bp, 4).sum(dim=1)
+        with span("render.trace"):
+            hits = intersect_bvh(arrays, packets, stack_size=stack_size)
+        with span("render.shade"):
+            rgba = shade_normal_dot(packets, hits)
+            return rgba.reshape(-1, spp, bp, 4).sum(dim=1)
 
     rgba_sum = trace_shade(rays, arrays) if mesh is None else map_shards(trace_shade, rays, mesh, arrays)
-    return unpack_tile(rgba_sum.reshape(K, nb, bp, 4), tile_shape, packet_shape)
+    with span("render.shade"):
+        return unpack_tile(rgba_sum.reshape(K, nb, bp, 4), tile_shape, packet_shape)

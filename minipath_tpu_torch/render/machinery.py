@@ -17,6 +17,14 @@ sample count is rendered exactly, in passes of at most
 :data:`SAMPLES_PER_PASS` samples or ``render(samples_per_pass=)``
 (``spp_effective`` reports it), where the JAX package rounds it up to
 equal passes.
+
+While tracing is on (``utils/profiling.py``), a render records the spans
+``render.start``, ``render.wait`` and ``render.image`` on the caller's
+thread and, on the render thread, ``render.frame`` holding each dispatch's
+``render.dispatch``, ``render.fetch`` and ``render.write_back``, all under
+one request id, and counts the host time of the tile callbacks
+(``render.callback_ns``). It never synchronizes the device: its host waits
+are the fetches.
 """
 
 from __future__ import annotations
@@ -35,7 +43,7 @@ from minipath_tpu_torch.scene import Scene
 from minipath_tpu_torch.scene.primitives import Sphere
 from minipath_tpu_torch.scene.triangle_bvh import TriangleBvh
 from minipath_tpu_torch.screen_block import ScreenBlock
-from minipath_tpu_torch.utils.profiling import PhaseTimers
+from minipath_tpu_torch.utils.profiling import PhaseTimers, count, current, new_request, recording, span
 
 # Pixel-block shape of one traversal packet. 16x16 = 256 pixels.
 PACKET_SHAPE = (16, 16)
@@ -51,8 +59,20 @@ BACKENDS = ("kernel", "portable")
 def _finalize_u8(acc: torch.Tensor, spp: int) -> torch.Tensor:
     """Mean + uint8 conversion on the device (``worker.rs:69-76``:
     round(c*255), clamped)."""
-    mean = acc / spp
-    return torch.clamp(torch.round(mean * 255.0), 0.0, 255.0).to(torch.uint8)
+    with span("render.finalize"):
+        mean = acc / spp
+        return torch.clamp(torch.round(mean * 255.0), 0.0, 255.0).to(torch.uint8)
+
+
+def _callback(callback, *args) -> None:
+    """Call a user's tile callback; while tracing, count its host time
+    (``render.callback_ns``)."""
+    if not recording():
+        callback(*args)
+        return
+    t0 = time.perf_counter_ns()
+    callback(*args)
+    count("render.callback_ns", time.perf_counter_ns() - t0)
 
 
 @dataclass(frozen=True)
@@ -86,7 +106,7 @@ class _RenderState:
         self.abort_flag = threading.Event()
         self.start_time = time.monotonic()
         self.end_time: float | None = None
-        self.timers = PhaseTimers()
+        self.timers = PhaseTimers("render.")
         self.error: BaseException | None = None
         # Frame mode (no tile callbacks): tiles are placed into this device
         # frame and the host fetches ONE image at the end.
@@ -97,9 +117,10 @@ class _RenderState:
 class RenderProgress:
     """Handle to an in-flight render (``machinery.rs:125-178``)."""
 
-    def __init__(self, state: _RenderState, thread: threading.Thread, spp_effective: int):
+    def __init__(self, state: _RenderState, thread: threading.Thread, spp_effective: int, request: int):
         self._state = state
         self._thread = thread
+        self._request = request  # the spans' request id
         #: Samples rendered per pixel (``RenderSettings.sample_count``).
         self.spp_effective = spp_effective
 
@@ -122,23 +143,27 @@ class RenderProgress:
 
     def wait(self) -> None:
         """Block until the render ends; re-raises a failure of the render thread."""
-        self._thread.join()
+        with span("render.wait", request=self._request):
+            self._thread.join()
         if self._state.error is not None:
             raise RuntimeError("render failed") from self._state.error
 
     def image(self) -> np.ndarray:
         """Snapshot of the (possibly partial) RGBA uint8 image."""
-        fetch = self._state.frame_fetch
-        if fetch is not None:
-            fetch()  # frame mode: pull the device buffer down first
-        with self._state.image_lock:
-            return self._state.image.copy()
+        with span("render.image", request=self._request):
+            fetch = self._state.frame_fetch
+            if fetch is not None:
+                fetch()  # frame mode: pull the device buffer down first
+            with self._state.image_lock:
+                return self._state.image.copy()
 
     def timings(self) -> PhaseTimers:
-        """Per-phase wall-clock accumulators: ``dispatch`` (ray generation,
-        traversal and shading of a batch of tiles) and ``fetch`` (the copy to
-        the host). On a CUDA device each phase synchronizes at both ends, so
-        it holds its own device work."""
+        """Per-phase accumulators of the host's time: ``dispatch`` (ray
+        generation, traversal, shading and byte conversion of a batch of
+        tiles, enqueued) and ``fetch`` (the copy to the host, which waits
+        for that batch's device work). No phase synchronizes the device: a
+        phase's device time comes from a trace of its span,
+        ``render.dispatch`` or ``render.fetch``."""
         return self._state.timers
 
 
@@ -228,122 +253,129 @@ def render(
             raise ValueError(f"device {device} is not the mesh's first device {mesh[0]}")
         device = mesh[0]
     device = torch.device("cuda" if device is None else device)
-    width, height = settings.resolution
-    # Tiles are traced at a packet-multiple shape; each is cropped to its own
-    # extent where it is written back (tile mode) or placed (frame mode).
-    tile_shape = (
-        _round_up(settings.tile_size, PACKET_SHAPE[0]),
-        _round_up(settings.tile_size, PACKET_SHAPE[1]),
-    )
-    th, tw = tile_shape
-
-    screen = ScreenBlock.with_size((0, 0), (width, height))
-    if tile_rng is None:
-        tile_rng = np.random.default_rng(seed)
-    tiles = screen.tile_ordering(settings.tile_size, rng=tile_rng)
-    state = _RenderState(np.zeros((height, width, 4), np.uint8), tiles)
-
-    spp_total = settings.sample_count
-    max_pass = samples_per_pass or SAMPLES_PER_PASS
-    passes = [min(max_pass, spp_total - s) for s in range(0, spp_total, max_pass)]
-
-    sampler = camera.build_sampler(settings.resolution, device)
-    shape = dict(tile_shape=tile_shape, packet_shape=PACKET_SHAPE)
-    if isinstance(obj, TriangleBvh):
-        stack_size = obj.recommended_stack_size
-        if backend == "portable":
-            tree, batch_fn = obj.arrays(device), integrator.render_tile_batch_bvh_portable
-        else:
-            tree, batch_fn = obj.kernel_scene(device), integrator.render_tile_batch_bvh
-        if mesh is not None:
-            tree = replicate(tree, mesh)
-
-        def tile_batch(origins, spp, strat_seed):
-            return batch_fn(
-                tree, sampler, origins, generator, strat_seed, spp=spp, stack_size=stack_size, mesh=mesh, **shape
-            )
-
-    else:
-        # The analytic sphere: no scene layout and no kernel launch.
-        def tile_batch(origins, spp, strat_seed):
-            return integrator.render_tile_batch_sphere(
-                obj, sampler, origins, generator, strat_seed, spp=spp, mesh=mesh, **shape
-            )
-
-    generator = torch.Generator(device=device)
-    generator.manual_seed(seed)
-    # One stratum seed per pass, from the render seed.
-    pass_seeds = [
-        int(s) for s in np.random.default_rng(seed).integers(-(2**31), 2**31, len(passes))
-    ]
-
-    frame_mode = started_tile_callback is None and finished_tile_callback is None
-    dispatch_cap = 1024 if frame_mode else 64
-    by_memory = MAX_RAYS_PER_DISPATCH // (th * tw * max(passes))
-    tiles_per_dispatch = max(1, min(dispatch_cap, by_memory, len(tiles)))
-
-    def compute_batch(batch):
-        origins = torch.tensor(
-            np.array([t.min for t in batch], np.float32), device=device
+    request = new_request()
+    with span("render.start", request=request):
+        width, height = settings.resolution
+        # Tiles are traced at a packet-multiple shape; each is cropped to its own
+        # extent where it is written back (tile mode) or placed (frame mode).
+        tile_shape = (
+            _round_up(settings.tile_size, PACKET_SHAPE[0]),
+            _round_up(settings.tile_size, PACKET_SHAPE[1]),
         )
-        acc = None
-        with state.timers.phase("dispatch", device):
-            for spp, strat_seed in zip(passes, pass_seeds):
-                part = tile_batch(origins, spp, strat_seed)
-                acc = part if acc is None else acc + part
-        return _finalize_u8(acc, spp_total), origins
+        th, tw = tile_shape
 
-    def write_batch(batch, tiles_u8):
-        with state.timers.phase("fetch", device):
-            tiles_u8 = tiles_u8.cpu().numpy()
-        for tile, tile_img in zip(batch, tiles_u8):
-            x0, y0 = int(tile.min[0]), int(tile.min[1])
-            x1, y1 = int(tile.max[0]), int(tile.max[1])
-            with state.image_lock:
-                state.image[y0:y1, x0:x1] = tile_img[: y1 - y0, : x1 - x0]
-            state.finished_count += 1
-            if finished_tile_callback is not None:
-                finished_tile_callback(
-                    tile,
-                    RenderProgressSnapshot(finished=state.finished_count, total=len(tiles)),
+        screen = ScreenBlock.with_size((0, 0), (width, height))
+        if tile_rng is None:
+            tile_rng = np.random.default_rng(seed)
+        tiles = screen.tile_ordering(settings.tile_size, rng=tile_rng)
+        state = _RenderState(np.zeros((height, width, 4), np.uint8), tiles)
+
+        spp_total = settings.sample_count
+        max_pass = samples_per_pass or SAMPLES_PER_PASS
+        passes = [min(max_pass, spp_total - s) for s in range(0, spp_total, max_pass)]
+
+        sampler = camera.build_sampler(settings.resolution, device)
+        shape = dict(tile_shape=tile_shape, packet_shape=PACKET_SHAPE)
+        if isinstance(obj, TriangleBvh):
+            stack_size = obj.recommended_stack_size
+            if backend == "portable":
+                tree, batch_fn = obj.arrays(device), integrator.render_tile_batch_bvh_portable
+            else:
+                tree, batch_fn = obj.kernel_scene(device), integrator.render_tile_batch_bvh
+            if mesh is not None:
+                tree = replicate(tree, mesh)
+
+            def tile_batch(origins, spp, strat_seed):
+                return batch_fn(
+                    tree, sampler, origins, generator, strat_seed, spp=spp, stack_size=stack_size, mesh=mesh, **shape
                 )
 
-    if frame_mode:
-        # One pad row and column, never fetched (place_tiles).
-        state.frame_dev = torch.zeros((height + 1, width + 1, 4), dtype=torch.uint8, device=device)
-        def fetch_frame():
-            with state.timers.phase("fetch", device):
-                full = state.frame_dev[:height, :width].cpu().numpy()
-            with state.image_lock:
-                state.image[:, :] = full
+        else:
+            # The analytic sphere: no scene layout and no kernel launch.
+            def tile_batch(origins, spp, strat_seed):
+                return integrator.render_tile_batch_sphere(
+                    obj, sampler, origins, generator, strat_seed, spp=spp, mesh=mesh, **shape
+                )
 
-        state.frame_fetch = fetch_frame
+        generator = torch.Generator(device=device)
+        generator.manual_seed(seed)
+        # One stratum seed per pass, from the render seed.
+        pass_seeds = [
+            int(s) for s in np.random.default_rng(seed).integers(-(2**31), 2**31, len(passes))
+        ]
 
-        def place_batch(batch, tiles_u8, origins):
-            place_tiles(state.frame_dev, tiles_u8, origins, settings.tile_size)
-            state.finished_count += len(batch)
+        frame_mode = started_tile_callback is None and finished_tile_callback is None
+        dispatch_cap = 1024 if frame_mode else 64
+        by_memory = MAX_RAYS_PER_DISPATCH // (th * tw * max(passes))
+        tiles_per_dispatch = max(1, min(dispatch_cap, by_memory, len(tiles)))
 
-    def run():
-        try:
-            for start in range(0, len(tiles), tiles_per_dispatch):
-                if state.abort_flag.is_set():
-                    break
-                batch = tiles[start : start + tiles_per_dispatch]
-                if started_tile_callback is not None:
-                    for t in batch:
-                        started_tile_callback(t)
-                tiles_u8, origins = compute_batch(batch)
-                if frame_mode:
-                    place_batch(batch, tiles_u8, origins)
-                else:
-                    write_batch(batch, tiles_u8)
-            if frame_mode:
-                fetch_frame()
-        except Exception as e:  # re-raised by RenderProgress.wait()
-            state.error = e
-        finally:
-            state.end_time = time.monotonic()
+        def compute_batch(batch):
+            origins = torch.tensor(
+                np.array([t.min for t in batch], np.float32), device=device
+            )
+            acc = None
+            with state.timers.phase("dispatch"):
+                for spp, strat_seed in zip(passes, pass_seeds):
+                    part = tile_batch(origins, spp, strat_seed)
+                    acc = part if acc is None else acc + part
+                return _finalize_u8(acc, spp_total), origins
 
-    thread = threading.Thread(target=run, name="minipath-render", daemon=True)
-    thread.start()
-    return RenderProgress(state, thread, spp_total)
+        def write_batch(batch, tiles_u8):
+            with state.timers.phase("fetch"):
+                tiles_u8 = tiles_u8.cpu().numpy()
+            with span("render.write_back"):
+                for tile, tile_img in zip(batch, tiles_u8):
+                    x0, y0 = int(tile.min[0]), int(tile.min[1])
+                    x1, y1 = int(tile.max[0]), int(tile.max[1])
+                    with state.image_lock:
+                        state.image[y0:y1, x0:x1] = tile_img[: y1 - y0, : x1 - x0]
+                    state.finished_count += 1
+                    if finished_tile_callback is not None:
+                        _callback(
+                            finished_tile_callback,
+                            tile,
+                            RenderProgressSnapshot(finished=state.finished_count, total=len(tiles)),
+                        )
+
+        if frame_mode:
+            # One pad row and column, never fetched (place_tiles).
+            state.frame_dev = torch.zeros((height + 1, width + 1, 4), dtype=torch.uint8, device=device)
+            def fetch_frame():
+                with state.timers.phase("fetch"):
+                    full = state.frame_dev[:height, :width].cpu().numpy()
+                with state.image_lock:
+                    state.image[:, :] = full
+
+            state.frame_fetch = fetch_frame
+
+            def place_batch(batch, tiles_u8, origins):
+                place_tiles(state.frame_dev, tiles_u8, origins, settings.tile_size)
+                state.finished_count += len(batch)
+
+        parent = current()  # render.start's span, the render thread's root's parent
+
+        def run():
+            try:
+                with span("render.frame", request=request, parent=parent):
+                    for start in range(0, len(tiles), tiles_per_dispatch):
+                        if state.abort_flag.is_set():
+                            break
+                        batch = tiles[start : start + tiles_per_dispatch]
+                        if started_tile_callback is not None:
+                            for t in batch:
+                                _callback(started_tile_callback, t)
+                        tiles_u8, origins = compute_batch(batch)
+                        if frame_mode:
+                            place_batch(batch, tiles_u8, origins)
+                        else:
+                            write_batch(batch, tiles_u8)
+                    if frame_mode:
+                        fetch_frame()
+            except Exception as e:  # re-raised by RenderProgress.wait()
+                state.error = e
+            finally:
+                state.end_time = time.monotonic()
+
+        thread = threading.Thread(target=run, name="minipath-render", daemon=True)
+        thread.start()
+    return RenderProgress(state, thread, spp_total, request)

@@ -56,7 +56,7 @@ from minipath_tpu_torch.scene.materials import (
     material_rows,
     sample_lights,
 )
-from minipath_tpu_torch.utils.profiling import annotate
+from minipath_tpu_torch.utils.profiling import annotate, count, new_request, recording
 
 _EPS = 1e-3  # self-intersection offset along the facing normal
 _PI = np.pi
@@ -681,6 +681,13 @@ def _pt_trace(
                     cut = live < int(min_live_frac * N)
                     state = state._replace(active=state.active & ~cut)
                     live = torch.where(cut, torch.zeros_like(live), live)
+        if recording():
+            # Lanes entering the trace, and how many of them are live.
+            count("pt.lanes", N)
+            if bounce == 0:
+                count("pt.live_lanes", N if live_rays is None else live_rays)
+            else:
+                count("pt.live_lanes", live if compaction else state.active.sum(dtype=torch.int32))
         with annotate("pt.trace"):
             kh = tracer(tracer_state, state.origin, state.direction, state.inv_direction, live)
         with annotate("pt.environment_emission"):
@@ -709,7 +716,7 @@ def _pt_trace(
             new_dir, atten, emitted, terminate, bsdf_pdf, diffuse = scatter_full(
                 materials, generator, state.direction, kh.normal, kh.material, strat=strat_b
             )
-        with annotate("pt.environment_emission"):
+        with annotate("pt.hit_emission"):
             if nee:
                 # MIS: weight the emitter hit by how likely BSDF sampling was
                 # to find it, against NEE from the previous vertex.
@@ -753,6 +760,7 @@ def _pt_trace(
                 seg = y - wi * _EPS - sh_o
             with annotate("pt.shadow_trace"):
                 o_s, s_s, n_cand, order = _shadow_batch(cand, sh_o, seg, wi, light_i, shadow_sort)
+                count("pt.shadow_rays", n_cand)
                 occ_s = shadow_tracer(tracer_state, o_s, s_s, n_cand)
                 occluded = torch.empty_like(occ_s)
                 occluded[order] = occ_s
@@ -891,42 +899,44 @@ def render_frame_pt(
         raise ValueError("return_variance needs spp >= 2")
     if sobol and not stratify:
         raise ValueError("sobol=True requires stratify=True")
-    if strat_seed is None:
-        # One pairing seed per render, shared by every chunk of the window.
-        strat_seed = render_seed(generator)
-    strat_seed = (int(strat_seed) + 2**31) % 2**32 - 2**31  # as int32
-    strat_spp = (-1 if sobol else 1) * (strat_total or spp) if stratify else None
-    bh, bw = px_block
-    hc, wc = -(-height // bh), -(-width // bw)
-    acc = acc_sq = None
-    done = 0
-    while done < spp:
-        n = min(samples_per_packet, spp - done)
-        part = _pt_chunk(
-            tracer_state, materials, env, sampler, generator,
-            width=width, height=height, px_block=px_block, samples=n,
-            strat_spp=strat_spp, strat_offset=strat_offset + done, strat_seed=strat_seed,
-            tracer=tracer, bounces=bounces, compaction=compaction, lights=lights,
-            shadow_tracer=shadow_tracer, shadow_sort=shadow_sort, shadow_rr=shadow_rr,
-            nee_max_depth=nee_max_depth, rr_start=rr_start, rr_floor=rr_floor, min_live_frac=min_live_frac,
-            with_sumsq=return_variance, clamp=clamp,
-        )
+    with annotate("pt.frame", request=new_request()):
+        if strat_seed is None:
+            # One pairing seed per render, shared by every chunk of the window.
+            strat_seed = render_seed(generator)
+        strat_seed = (int(strat_seed) + 2**31) % 2**32 - 2**31  # as int32
+        strat_spp = (-1 if sobol else 1) * (strat_total or spp) if stratify else None
+        bh, bw = px_block
+        hc, wc = -(-height // bh), -(-width // bw)
+        acc = acc_sq = None
+        done = 0
+        while done < spp:
+            n = min(samples_per_packet, spp - done)
+            with annotate("pt.chunk"):
+                part = _pt_chunk(
+                    tracer_state, materials, env, sampler, generator,
+                    width=width, height=height, px_block=px_block, samples=n,
+                    strat_spp=strat_spp, strat_offset=strat_offset + done, strat_seed=strat_seed,
+                    tracer=tracer, bounces=bounces, compaction=compaction, lights=lights,
+                    shadow_tracer=shadow_tracer, shadow_sort=shadow_sort, shadow_rr=shadow_rr,
+                    nee_max_depth=nee_max_depth, rr_start=rr_start, rr_floor=rr_floor,
+                    min_live_frac=min_live_frac, with_sumsq=return_variance, clamp=clamp,
+                )
+            if return_variance:
+                part, part_sq = part
+                acc_sq = part_sq if acc_sq is None else acc_sq + part_sq
+            acc = part if acc is None else acc + part
+            done += n
+        rgb = unpack_frame(acc, width, height, (hc, wc), px_block) / spp
+        img = torch.cat([rgb, torch.ones_like(rgb[..., :1])], dim=-1)
         if return_variance:
-            part, part_sq = part
-            acc_sq = part_sq if acc_sq is None else acc_sq + part_sq
-        acc = part if acc is None else acc + part
-        done += n
-    rgb = unpack_frame(acc, width, height, (hc, wc), px_block) / spp
-    img = torch.cat([rgb, torch.ones_like(rgb[..., :1])], dim=-1)
-    if return_variance:
-        from minipath_tpu_torch.utils import LUMA_WEIGHTS
+            from minipath_tpu_torch.utils import LUMA_WEIGHTS
 
-        lum_sum = acc @ torch.from_numpy(LUMA_WEIGHTS).to(dev)
-        # Sample variance of the per-sample luminance over spp, divided by
-        # spp: the variance of the pixel's mean.
-        var = torch.clamp(acc_sq - lum_sum * lum_sum / spp, min=0.0) / ((spp - 1) * spp)
-        return img, unpack_frame(var[..., None], width, height, (hc, wc), px_block)[..., 0]
-    return img
+            lum_sum = acc @ torch.from_numpy(LUMA_WEIGHTS).to(dev)
+            # Sample variance of the per-sample luminance over spp, divided by
+            # spp: the variance of the pixel's mean.
+            var = torch.clamp(acc_sq - lum_sum * lum_sum / spp, min=0.0) / ((spp - 1) * spp)
+            return img, unpack_frame(var[..., None], width, height, (hc, wc), px_block)[..., 0]
+        return img
 
 
 def make_pt_renderer_sharded(

@@ -61,8 +61,8 @@ TIMED_FRAMES = 2
 TIMED_CHUNKS = 3
 # The annotated phases of the bounce loop, in loop order.
 PHASES = (
-    "pt.compaction", "pt.trace", "pt.environment_emission", "pt.bsdf_scatter", "pt.nee_light_sample",
-    "pt.shadow_trace", "pt.roulette_update",
+    "pt.compaction", "pt.trace", "pt.environment_emission", "pt.bsdf_scatter", "pt.hit_emission",
+    "pt.nee_light_sample", "pt.shadow_trace", "pt.roulette_update",
 )
 # K2 closest-hit's kernel, as the profiler names it.
 K2_CLOSEST = "traverse_kernel<true, false>"

@@ -1,48 +1,225 @@
-"""Phase timing and profiler annotations.
+"""Spans, counters, phase timers and profiler helpers.
 
-* :class:`PhaseTimers` accumulates named wall-clock phases (built on the same
-  :class:`~minipath_tpu_torch.utils.stats.Stats` streaming accumulator the
-  BVH statistics use); the render thread records dispatch/fetch phases.
-  PyTorch returns before a CUDA device has finished, so a phase given a CUDA
-  ``device`` synchronizes it before reading the clock: the phase then times
-  the device work it enqueued, not only the enqueue.
+* :func:`span` records a named region of the program: its name, start and
+  end (``time.time_ns``, the clock the profiler's trace is stamped with, up
+  to one offset), thread, parent span and request; :func:`count` adds to a
+  named counter. Both record only while tracing is on: while a torch
+  profiler records (on any thread: the process-wide flag that the render
+  thread also sees) or after :func:`enable`. Off, a span is one flag check
+  (no clock read, no ``record_function``, no allocation) and a counter does
+  nothing. Under a profiler each span also enters ``record_function``, so
+  the kernels launched inside it are attributed to its name in the trace.
+  :func:`take` returns and clears what was recorded;
+  :func:`export_chrome_trace` writes it as a Chrome trace. :func:`annotate`
+  is :func:`span`.
+* :class:`PhaseTimers` accumulates the host time of named phases, each also
+  a span; the render thread records ``dispatch`` and ``fetch``. It never
+  synchronizes a device: the device time of a phase comes from a trace.
 * :func:`trace` profiles the host and, where there is one, the CUDA device,
-  and writes a Chrome trace.
-* :func:`annotate` names a region; ``torch.profiler`` attributes the kernels
-  launched inside it to that name. Without a profiler running it costs a few
-  microseconds of host time and no device work or host sync.
+  and writes a Chrome trace; :func:`annotated_ms` reads ranges' device time
+  from the profiler's events.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
+import json
+import os
+import threading
 import time
+from collections import deque
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 from minipath_tpu_torch.utils.stats import Stats
 
+# Spans a record keeps at most; past it the oldest are dropped.
+MAX_SPANS = 1 << 18
 
-class PhaseTimers:
-    """Accumulates wall-clock durations per named phase."""
+
+class Span(NamedTuple):
+    name: str
+    start_ns: int  # time.time_ns()
+    end_ns: int
+    thread: int  # threading.get_ident()
+    id: int
+    parent: int | None  # the enclosing span's id
+    request: int  # shared by every span of one render() or render_frame_pt call
+
+
+class Record(NamedTuple):
+    spans: list  # of Span, in the order they ended
+    counters: dict  # name -> total
+
+
+_OFF = contextlib.nullcontext()
+
+
+class Recorder:
+    """Spans and counters kept in memory until :meth:`take`."""
 
     def __init__(self):
+        self.enabled = False
+        self._spans = deque(maxlen=MAX_SPANS)
+        self._host: dict = {}
+        self._device: dict = {}  # (name, device) -> accumulating tensor
+        self._lock = threading.Lock()
+        self._local = threading.local()
+        self._ids = itertools.count(1)
+
+    def recording(self) -> bool:
+        """True while spans and counters are recorded."""
+        return self.enabled or _autograd_profiler._is_profiler_enabled
+
+    def new_request(self) -> int:
+        """A fresh request id (see :meth:`span`)."""
+        return next(self._ids)
+
+    def current(self) -> int | None:
+        """The id of the innermost span open on this thread, if any: the
+        ``parent`` a span on another thread names to join this one."""
+        stack = getattr(self._local, "stack", None)
+        return stack[-1][0] if stack else None
+
+    def span(self, name: str, request: int | None = None, parent: int | None = None):
+        """A context manager recording a span called ``name``. Its parent is
+        ``parent``, else the innermost span open on this thread; its request
+        is ``request``, else its parent's on this thread, else a new one."""
+        if not (self.enabled or _autograd_profiler._is_profiler_enabled):
+            return _OFF
+        return _OpenSpan(self, name, request, parent)
+
+    def count(self, name: str, value) -> None:
+        """Add ``value`` (a Python number, or a 0-d tensor summed where it
+        lies, with no host sync) to the counter ``name``."""
+        if not (self.enabled or _autograd_profiler._is_profiler_enabled):
+            return
+        with self._lock:
+            if not isinstance(value, torch.Tensor):
+                self._host[name] = self._host.get(name, 0) + value
+                return
+            key = (name, value.device)
+            held = self._device.get(key)
+            if held is None:
+                self._device[key] = value.to(torch.float64 if value.is_floating_point() else torch.int64, copy=True)
+            else:
+                held.add_(value)
+
+    def take(self) -> Record:
+        """What was recorded since the last take, cleared; the device
+        counters are read here (one host sync each)."""
+        with self._lock:
+            spans, self._spans = list(self._spans), deque(maxlen=MAX_SPANS)
+            counters, device = self._host, self._device
+            self._host, self._device = {}, {}
+        for (name, _), total in device.items():
+            counters[name] = counters.get(name, 0) + total.item()
+        return Record(spans, counters)
+
+    def _stack(self) -> list:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
+    def _add(self, span: Span) -> None:
+        with self._lock:
+            self._spans.append(span)
+
+
+class _OpenSpan:
+    __slots__ = ("rec", "name", "request", "parent", "id", "range", "start")
+
+    def __init__(self, rec: Recorder, name: str, request, parent):
+        self.rec, self.name, self.request, self.parent = rec, name, request, parent
+
+    def __enter__(self):
+        stack = self.rec._stack()
+        if stack:
+            if self.parent is None:
+                self.parent = stack[-1][0]
+            if self.request is None:
+                self.request = stack[-1][1]
+        if self.request is None:
+            self.request = self.rec.new_request()
+        self.id = next(self.rec._ids)
+        stack.append((self.id, self.request))
+        self.range = None
+        if _autograd_profiler._is_profiler_enabled:
+            self.range = torch.profiler.record_function(self.name)
+            self.range.__enter__()
+        self.start = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.time_ns()
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        self.rec._stack().pop()
+        self.rec._add(Span(self.name, self.start, end, threading.get_ident(), self.id, self.parent, self.request))
+        return False
+
+
+#: The process's recorder: the program's spans and counters go here.
+RECORDER = Recorder()
+span = RECORDER.span
+count = RECORDER.count
+take = RECORDER.take
+recording = RECORDER.recording
+new_request = RECORDER.new_request
+current = RECORDER.current
+annotate = span
+
+
+def enable() -> None:
+    """Record spans and counters with no profiler running."""
+    RECORDER.enabled = True
+
+
+def disable() -> None:
+    RECORDER.enabled = False
+
+
+def export_chrome_trace(record: Record, path) -> None:
+    """Write ``record`` as a Chrome trace: a complete event a span (its id,
+    parent and request in ``args``) and a counter event a counter at the
+    end. As in ``torch.profiler``'s traces, ``ts`` is in microseconds since
+    ``baseTimeNanoseconds``, here the first span's start."""
+    base = min((s.start_ns for s in record.spans), default=time.time_ns())
+    end = max((s.end_ns for s in record.spans), default=base)
+    pid = os.getpid()
+    events = [
+        {"ph": "X", "cat": "minipath", "name": s.name, "pid": pid, "tid": s.thread, "ts": (s.start_ns - base) / 1e3,
+         "dur": (s.end_ns - s.start_ns) / 1e3, "args": {"id": s.id, "parent": s.parent, "request": s.request}}
+        for s in record.spans
+    ]
+    events += [{"ph": "C", "cat": "minipath", "name": name, "pid": pid, "tid": 0, "ts": (end - base) / 1e3,
+                "args": {name: value}} for name, value in sorted(record.counters.items())]
+    out = Path(path)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps({"traceEvents": events, "displayTimeUnit": "ms", "baseTimeNanoseconds": base}))
+
+
+class PhaseTimers:
+    """Host time per named phase; each phase is also a span called
+    ``prefix + name``."""
+
+    def __init__(self, prefix: str = ""):
+        self._prefix = prefix
         self._stats: dict[str, Stats] = {}
 
     @contextlib.contextmanager
-    def phase(self, name: str, device=None):
-        """Time the enclosed block; with a CUDA ``device``, synchronize it
-        at both ends so the phase holds exactly its own device work."""
-        sync = device is not None and torch.device(device).type == "cuda"
-        if sync:
-            torch.cuda.synchronize(device)
+    def phase(self, name: str):
+        """Time the enclosed block on the host's clock."""
         t0 = time.perf_counter()
         try:
-            yield
+            with span(self._prefix + name):
+                yield
         finally:
-            if sync:
-                torch.cuda.synchronize(device)
             self.add(name, time.perf_counter() - t0)
 
     def add(self, name: str, seconds: float) -> None:
@@ -86,11 +263,6 @@ def trace(log_dir):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(str(out / "trace.json"))
-
-
-def annotate(name: str):
-    """Named region annotation shown in profiler traces: a context manager."""
-    return torch.profiler.record_function(name)
 
 
 def annotated_ms(events, names, device: bool) -> list:

@@ -68,3 +68,36 @@ def test_frame_mode_off_the_packet_size_is_deterministic(cuda, atrium):
     first = _image(atrium, cuda, "kernel", tile_size=40)
     assert np.array_equal(first, _image(atrium, cuda, "kernel", tile_size=40))
     assert np.array_equal(first, _image(atrium, cuda, "kernel", lambda tile, snapshot: None, tile_size=40))
+
+
+def test_tile_mode_waits_only_for_its_fetches(cuda, atrium, monkeypatch):
+    """A tile-mode ``render()`` never synchronizes the card: its host waits
+    are one copy of each dispatch's tiles (``render.fetch``) and nothing
+    else. 128x72 at 16-px tiles is 40 tiles, at most 8 a dispatch in the
+    test's settings: 5 dispatches, 5 copies."""
+    from minipath_tpu_torch.render import machinery
+
+    monkeypatch.setattr(machinery, "MAX_RAYS_PER_DISPATCH", 8 * 16 * 16 * 4)
+    settings = RenderSettings(tile_size=16, sample_count=4, resolution=(128, 72))
+
+    def tile_render():
+        p = render(Scene(atrium), CAMERA, settings, finished_tile_callback=lambda tile, snapshot: None,
+                   device=cuda, seed=9)
+        p.wait()
+        return p, p.image()
+
+    tile_render()  # the scene's upload and the kernel's build
+    calls = {"synchronize": 0, "cpu": 0, "item": 0, "tolist": 0}
+    for owner, name in ((torch.cuda, "synchronize"), (torch.Tensor, "cpu"), (torch.Tensor, "item"),
+                        (torch.Tensor, "tolist")):
+        real = getattr(owner, name)
+
+        def counted(*args, _real=real, _name=name, **kwargs):
+            calls[_name] += 1
+            return _real(*args, **kwargs)
+
+        monkeypatch.setattr(owner, name, counted)
+    p, image = tile_render()
+    assert (image[..., 3] > 0).mean() > 0.9
+    assert p.timings().summary()["fetch"]["count"] == 5
+    assert calls == {"synchronize": 0, "cpu": 5, "item": 0, "tolist": 0}

@@ -1,17 +1,18 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (``minipath_tpu_torch``) on one NVIDIA GPU.
 
-Run from the root of a checkout: ``python3 chip_smoke.py``. Twenty-eight phases,
+Run from the root of a checkout: ``python3 chip_smoke.py``. Twenty-nine phases,
 each printing its lines as it finishes; any failure raises and the script
 exits non-zero. There is no CPU path: without a CUDA device it fails at once.
 
 1. Device: the card's name and power limit.
-2. Build: compiles the three CUDA sources (``csrc/traverse.cu``: K1, K2;
-   ``csrc/traverse_q.cu``: K3; ``csrc/chain.cu``: K4, K5) with nvcc, all at
-   once, and prints what ptxas says of each kernel (registers, stack frame,
-   spills, the blocks an SM holds) and the chain kernels' multiplies and
-   min/max in the SASS. Fails where a traversal kernel's frame exceeds its
-   stack of 128 entries of 8 bytes, or spills.
+2. Build: compiles the four CUDA sources (``csrc/traverse.cu``: K1, K2;
+   ``csrc/traverse_q.cu``: K3; ``csrc/chain.cu``: K4, K5; ``csrc/shade.cu``:
+   the bounce shading) with nvcc, all at once, and prints what ptxas says of
+   each kernel (registers, stack frame, spills, the blocks an SM holds) and
+   the chain kernels' multiplies and min/max in the SASS. Fails where a
+   traversal kernel's frame exceeds its stack of 128 entries of 8 bytes, or
+   where any kernel spills.
 3. Kernel against its plain PyTorch version on the card, on the
    249,284-triangle procedural atrium: 16,384 coherent camera rays from the
    benchmark camera, 16,384 incoherent rays inside the atrium, and the first
@@ -42,8 +43,9 @@ triangles):
    any-hit, and 64 packets rooted at the root's child subtrees; then K2 over
    the whole 4.18M-ray bounce-1 wavefront.
 7. Main path: ``render_frame_pt`` at 1920x1080 @ 64 spp, 5 bounces, NEE at
-   the first vertex, cold and warm (launches per mode, host syncs and peak
-   memory of the warm frame); then 960x540 @ 8 spp with NEE at every vertex.
+   the first vertex, cold and warm (K2's launches per mode, the shading
+   kernel's launches, one a bounce of each chunk, host syncs and peak memory
+   of the warm frame); then 960x540 @ 8 spp with NEE at every vertex.
 8. The same 64x64 Sobol frame on the card and on the CPU (plain versions).
 9. CLI: ``--integrator pt --nee`` writes a PNG.
 
@@ -223,9 +225,26 @@ Phases 27 and 28 run after phase 26:
     their plain versions, and the native tree of ``make_atrium(0)``, held to
     the checkout's bit for bit.
 
-``python3 chip_smoke.py --kernels-only`` runs phases 1, 2, 3, 6 and 10 alone:
-the traversal kernels against their plain versions, with their times, bounds
-and requested bytes (about two minutes, most of it the three scene builds).
+Phase 29 runs after phase 7:
+
+29. The bounce-shading kernel (``csrc/shade.cu``) against its plain version
+    on the main path's state at full width: the first 8-spp chunk of a
+    pt-1080p64-nee1 frame (16,711,680 lanes; bounce 0 with NEE, bounces 1-4
+    compacted, path roulette from bounce 3), each bounce shaded by
+    ``_shade_kernel`` and ``_shade_plain`` from one generator state. Every
+    output equal on every lane (the state; the NEE segment on its
+    candidates; the generator after), each branch the scene offers taken
+    (Lambertian, glossy metal, glass, glass that cannot refract, emitters,
+    MIS-weighted emitter hits, NEE candidates; the hall is closed, so no
+    lane misses, and no metal is a mirror); the lanes by
+    branch, the kernel's time alone and with its uniforms' draws, the plain
+    version's, and its bound by the bytes each lane class must move; then
+    the same for a frame of eight such chunks.
+
+``python3 chip_smoke.py --kernels-only`` runs phases 1, 2, 3, 6, 29 and 10
+alone: the traversal and shading kernels against their plain versions, with
+their times, bounds and requested bytes (about three minutes, most of it the
+three scene builds).
 
 ``python3 chip_smoke.py --profile DIR`` also writes a ``torch.profiler``
 summary of one warm path-traced frame to DIR, over the f32 layout (after
@@ -383,14 +402,14 @@ def phase_device():
 
 
 def phase_build():
-    """The three sources at once, one nvcc each."""
+    """The four sources at once, one nvcc each."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from minipath_tpu_torch.render import kernels, kernels_q
+    from minipath_tpu_torch.render import kernels, kernels_q, shade
     from minipath_tpu_torch.utils import calibrate
 
     t0 = time.perf_counter()
-    loaders = (kernels.load_library, kernels_q.load_library, calibrate.load_library)
+    loaders = (kernels.load_library, kernels_q.load_library, calibrate.load_library, shade.load_library)
     with ThreadPoolExecutor(len(loaders)) as pool:
         libs = [f.result() for f in [pool.submit(load) for load in loaders]]
     from minipath_tpu_torch.render.kernels import STACK_CAPACITY
@@ -409,7 +428,13 @@ def phase_build():
         for u in usage:
             if u["stack_frame"] > STACK_CAPACITY * 8 or u["spill_stores"] or u["spill_loads"]:
                 raise AssertionError(f"{name}: a frame beyond the {STACK_CAPACITY * 8} B stack, or spills: {u}")
-    log("2 build", f"all three built and loaded in {time.perf_counter() - t0:.2f}s")
+    # The bounce-shading kernel keeps a lane's state in registers; its small
+    # frame is the slow path of sinf and cosf.
+    usage = ptxas_usage(libs[3].log)
+    log("2 build", f"shade.cu: {json.dumps(usage)}")
+    if len(usage) != 1 or usage[0]["spill_stores"] or usage[0]["spill_loads"]:
+        raise AssertionError(f"shade.cu: expected one kernel without spills, got {usage}")
+    log("2 build", f"all four built and loaded in {time.perf_counter() - t0:.2f}s")
     log("2 build", f"chain kernels' SASS: {json.dumps(chain_sass_counts(libs[2].path))}")
 
 
@@ -875,12 +900,13 @@ def render_pt(parts, device, width, height, spp, nee_max_depth, samples_per_pack
 def phase_pt_main_path(parts, device, smi):
     import warnings
 
-    from minipath_tpu_torch.render import kernels
+    from minipath_tpu_torch.render import kernels, shade
 
     paths = PT_WIDTH * PT_HEIGHT * PT_SPP
     _, cold = render_pt(parts, device, PT_WIDTH, PT_HEIGHT, PT_SPP, 1, 2, seed=0)
     for mode in kernels.trace_packets_pt.launches:
         kernels.trace_packets_pt.launches[mode] = 0
+    shade.launch.launches = 0
     torch.cuda.reset_peak_memory_stats(device)
     torch.cuda.set_sync_debug_mode("warn")
     try:
@@ -890,13 +916,18 @@ def phase_pt_main_path(parts, device, smi):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     launches = dict(kernels.trace_packets_pt.launches)
+    shade_launches = shade.launch.launches
     syncs = sum("synchroniz" in str(w.message) for w in caught)
     peak = torch.cuda.max_memory_allocated(device)
     if min(launches.values()) == 0:
         raise AssertionError(f"the path-traced frame did not launch K2 in every mode: {launches}")
+    # One bounce-shading launch a bounce of every 2-spp chunk.
+    if shade_launches != PT_SPP // 2 * PT_BOUNCES:
+        raise AssertionError(f"the path-traced frame launched the shading kernel {shade_launches} times, not "
+                             f"{PT_SPP // 2 * PT_BOUNCES}")
     log("7 pt main path", f"render_frame_pt {PT_WIDTH}x{PT_HEIGHT} @ {PT_SPP} spp, {PT_BOUNCES} bounces, NEE at "
         f"depth 1, samples_per_packet 2 on {smi}: warm frame {warm:.3f} s = {paths / warm / 1e6:.2f} Mpaths/s "
-        f"(cold {cold:.3f} s) | K2 launches {launches} | host syncs in the warm frame {syncs} | peak device memory {peak / 1e9:.2f} GB | image mean {img[..., :3].mean():.5f}, all "
+        f"(cold {cold:.3f} s) | K2 launches {launches}, shading launches {shade_launches} | host syncs in the warm frame {syncs} | peak device memory {peak / 1e9:.2f} GB | image mean {img[..., :3].mean():.5f}, all "
         f"finite")
 
     w2, h2, spp2 = 960, 540, 8
@@ -910,7 +941,199 @@ def phase_pt_main_path(parts, device, smi):
         f"launches {dict(kernels.trace_packets_pt.launches)} | peak device memory "
         f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB | image mean {img2[..., :3].mean():.5f}, "
         f"all finite")
-    return sum(launches.values()), img, warm
+    return sum(launches.values()), shade_launches, img, warm
+
+
+# Phase 29: one chunk of the pt-1080p64-nee1 frame (8 spp of 1920 x 1088, the
+# frame in whole 16 x 16 blocks: 16,711,680 lanes), each bounce shaded by the
+# kernel and by its plain version.
+SHADE_CHUNK = 8
+
+
+def shade_lanes(state, kh, table, kw, nee_lanes):
+    """The lanes of one bounce by the branch the shading takes, as a dict of
+    counts; ``kw`` is the bounce's keyword arguments, ``nee_lanes`` the lanes
+    that stayed NEE candidates after the shadow roulette."""
+    from minipath_tpu_torch.render.wavefront import GLOSSY_MIN_FUZZ
+    from minipath_tpu_torch.scene.materials import DIELECTRIC, EMISSIVE, LAMBERTIAN, METAL
+
+    n = state.origin.shape[0]
+    live = n if kw["live"] is None else int(kw["live"])
+    active = state.active & (torch.arange(n, device=state.origin.device) < live)
+    hit = active & (kh.tri >= 0)
+    mat = kh.material.long().clamp(min=0)
+    kind, param = table.kind.long()[mat], table.param[mat]
+    metal, glass = hit & (kind == METAL), hit & (kind == DIELECTRIC)
+    # The dielectric lanes that cannot refract (total internal reflection).
+    d_dot_n = (state.direction * kh.normal).sum(-1)
+    ior = param.clamp(min=1.0001)
+    eta = torch.where(d_dot_n < 0, 1.0 / ior, ior)
+    sin_t = (1.0 - d_dot_n.abs().clamp(max=1.0) ** 2).clamp(min=0.0).sqrt()
+    emitter = hit & (kind == EMISSIVE)
+    counts = dict(
+        lanes=n, past_live=n - live, inactive=int((~state.active[:live]).sum()),
+        miss=int((active & (kh.tri < 0)).sum()),
+        lambertian=int((hit & (kind == LAMBERTIAN)).sum()), glossy=int((metal & (param >= GLOSSY_MIN_FUZZ)).sum()),
+        mirror=int((metal & (param < GLOSSY_MIN_FUZZ)).sum()), dielectric=int(glass.sum()),
+        cannot_refract=int((glass & (eta * sin_t > 1.0)).sum()), emitter=int(emitter.sum()),
+        emitter_mis=int((emitter & (state.prev_pdf > 0)).sum()) if state.prev_pdf is not None else 0,
+        nee_candidates=int(nee_lanes.sum()) if nee_lanes is not None else 0,
+    )
+    return counts
+
+
+def shade_bytes(c, kw, nee):
+    """The least bytes one bounce's shading moves through HBM, from the lane
+    counts ``c`` of :func:`shade_lanes`: what each lane's work must read and
+    write, with the material and light rows (kilobytes, resident in L2) left
+    out, and no sector's unused bytes counted.
+
+    Every lane reads its state (origin, direction, inverse, throughput,
+    radiance: 60 B) and writes its next state (61 B, 65 with the MIS pdf; 53
+    B more of NEE segment on a NEE bounce: mask, origin, segment, direction,
+    light, contribution). A lane inside the live count reads its flag (1 B);
+    an active lane its triangle (4 B); a hit its distance, normal and
+    material (20 B), its pixel slot with strata (4 B) and its MIS pdf with
+    NEE (4 B). The uniforms, where drawn (not in Sobol mode): a Lambertian or
+    glossy lane 8 B, a dielectric 4 B, a mirror or an emitter none; on a NEE
+    bounce a Lambertian or glossy lane 12 B for the light sample, a surviving
+    candidate 4 B for the shadow roulette; on a roulette bounce every hit but
+    an emitter's 4 B."""
+    strata, n = kw["strata"], c["lanes"]
+    live = n - c["past_live"]
+    active = live - c["inactive"]
+    hits = c["lambertian"] + c["glossy"] + c["mirror"] + c["dielectric"] + c["emitter"]
+    nbytes = n * (60 + 61 + 4 * nee + 53 * kw["nee_here"]) + live + 4 * active
+    nbytes += hits * (20 + 4 * (strata is not None) + 4 * nee)
+    if strata is None or strata.spp > 0:
+        nbytes += 8 * (c["lambertian"] + c["glossy"]) + 4 * c["dielectric"]
+        if kw["nee_here"]:
+            nbytes += 12 * (c["lambertian"] + c["glossy"])
+    if kw["nee_here"] and kw["shadow_rr"]:
+        nbytes += 4 * c["nee_candidates"]
+    if kw["bounce"] >= kw["rr_start"]:
+        nbytes += 4 * (hits - c["emitter"])
+    return nbytes
+
+
+def exact_differences(got, want, mask=None):
+    """The lanes (of ``mask``, or all) where ``got`` and ``want`` differ in
+    any element; NaN equals NaN."""
+    same = (got == want) | (torch.isnan(got) & torch.isnan(want)) if got.is_floating_point() else got == want
+    if same.dim() > 1:
+        same = same.all(dim=-1)
+    if mask is not None:
+        same = same | ~mask
+    return int((~same).sum())
+
+
+def phase_shade(parts, device, smi):
+    """Phase 29: the bounce-shading kernel (``csrc/shade.cu``) against its
+    plain version on the main path's state at full width. One
+    pt-1080p64-nee1 frame (1920x1080 @ 64 spp in 8-spp chunks, 5 bounces,
+    NEE at the first vertex, compaction, both roulettes) keeps its first
+    chunk's five bounces: their states, hits, keyword arguments and
+    generator states. Each bounce is then shaded by ``_shade_kernel`` and
+    ``_shade_plain`` from one generator state, and every output must agree
+    exactly on every lane (the state, the NEE segment on its candidates, the
+    generator's state after). Prints each bounce's lanes by branch, the
+    kernel's time alone and with its draws, the plain version's, and its
+    bound by bytes (:func:`shade_bytes`). Returns the kernels line's
+    results, by bounce."""
+    from minipath_tpu_torch.render import shade
+    from minipath_tpu_torch.render import wavefront as W
+    from minipath_tpu_torch.utils.roofline import PEAK_HBM_BYTES
+
+    _, table, _, _, _ = parts
+    env = frame_inputs(device, PT_WIDTH, PT_HEIGHT)[1]
+    captured = []
+    originals = {name: getattr(W, name) for name in ("_shade_kernel", "_shade_plain")}
+
+    def capturing(fn):
+        def wrapped(state, kh, materials, env_, lights, generator, **kw):
+            if len(captured) < PT_BOUNCES:
+                captured.append((state, kh, lights, generator.get_state(), kw))
+            return fn(state, kh, materials, env_, lights, generator, **kw)
+
+        return wrapped
+
+    for name, fn in originals.items():
+        setattr(W, name, capturing(fn))
+    try:
+        render_pt(parts, device, PT_WIDTH, PT_HEIGHT, PT_SPP, 1, SHADE_CHUNK, seed=29)
+    finally:
+        for name, fn in originals.items():
+            setattr(W, name, fn)
+    if [kw["bounce"] for *_, kw in captured] != list(range(PT_BOUNCES)):
+        raise AssertionError(f"captured bounces {[kw['bounce'] for *_, kw in captured]}")
+
+    def generator(state):
+        g = torch.Generator(device=device)
+        g.set_state(state)
+        return g
+
+    launch = shade.launch
+    out, chunk = {}, dict(ms=0.0, draws_ms=0.0, plain_ms=0.0, bound_ms=0.0, nbytes=0)
+    for state, kh, lights, g_state, kw in captured:
+        b = kw["bounce"]
+        fields = {}
+
+        def recording(dev, **f):
+            fields.update(f)
+            return launch(dev, **f)
+
+        g_kernel, g_plain = generator(g_state), generator(g_state)
+        W.launch_shade = recording
+        try:
+            got, got_q = W._shade_kernel(state, kh, table, env, lights, g_kernel, **kw)
+        finally:
+            W.launch_shade = launch
+        want, want_q = W._shade_plain(state, kh, table, env, lights, g_plain, **kw)
+        diffs = {name: exact_differences(getattr(got, name), getattr(want, name))
+                 for name in ("origin", "direction", "inv_direction", "throughput", "radiance", "active", "prev_pdf")
+                 if getattr(want, name) is not None}
+        if (got_q is None) != (want_q is None):
+            raise AssertionError(f"bounce {b}: NEE query kernel {got_q is not None}, plain {want_q is not None}")
+        if want_q is not None:
+            diffs["cand"] = exact_differences(got_q.cand, want_q.cand)
+            for name in ("origin", "segment", "wi", "light", "contrib"):
+                diffs[f"nee.{name}"] = exact_differences(getattr(got_q, name), getattr(want_q, name), want_q.cand)
+        diffs["generator"] = int(not torch.equal(g_kernel.get_state(), g_plain.get_state()))
+        counts = shade_lanes(state, kh, table, kw, None if want_q is None else want_q.cand)
+        nbytes = shade_bytes(counts, kw, state.prev_pdf is not None)
+        bound_ms = nbytes / PEAK_HBM_BYTES * 1e3
+        ms = cuda_ms(lambda: launch(device, **fields), 10)
+        draws_ms = cuda_ms(lambda: W._shade_kernel(state, kh, table, env, lights, g_kernel, **kw), 5)
+        plain_ms = cuda_ms(lambda: W._shade_plain(state, kh, table, env, lights, g_plain, **kw), 1)
+        text = (f"bounce {b} ({'NEE, ' if kw['nee_here'] else ''}{'roulette, ' if b >= kw['rr_start'] else ''}"
+                f"{'compacted' if b else 'camera rays'}): {json.dumps(counts)} | lanes that differ {json.dumps(diffs)}"
+                f" | kernel {ms:.4f} ms, with its draws {draws_ms:.4f} ms, plain {plain_ms:.2f} ms | bound "
+                f"{bound_ms:.4f} ms by bytes ({nbytes / 1e9:.4f} GB): the kernel at {100 * bound_ms / ms:.1f}%")
+        if any(diffs.values()):
+            raise AssertionError(f"the shading kernel disagrees with its plain version on {smi}: {text}")
+        log("29 shade", text)
+        out[f"bounce {b}"] = dict(ms=ms, plain_ms=plain_ms, err=0.0, bound_ms=bound_ms, bound_by="bytes",
+                                  draws_ms=draws_ms, gb=nbytes / 1e9, lanes=counts)
+        for key, value in (("ms", ms), ("draws_ms", draws_ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms),
+                           ("nbytes", nbytes)):
+            chunk[key] += value
+        del got, got_q, want, want_q, fields
+    del captured
+    # Every branch the main path's scene offers (the hall is closed: no
+    # misses; its metal is glossy: no mirrors).
+    missing = [k for k in ("lambertian", "glossy", "dielectric", "cannot_refract", "emitter", "emitter_mis",
+                           "nee_candidates") if not any(r["lanes"][k] for r in out.values())]
+    if missing:
+        raise AssertionError(f"branches the main path's chunk never took: {missing}")
+    chunks = PT_SPP // SHADE_CHUNK
+    log("29 shade", f"a frame of {chunks} such chunks: kernel {chunks * chunk['ms']:.2f} ms (with its draws "
+        f"{chunks * chunk['draws_ms']:.2f}), plain {chunks * chunk['plain_ms']:.1f} ms; bound "
+        f"{chunks * chunk['bound_ms']:.2f} ms by bytes ({chunks * chunk['nbytes'] / 1e9:.2f} GB): the kernel at "
+        f"{100 * chunk['bound_ms'] / chunk['ms']:.1f}% | {smi}")
+    out["frame"] = dict(ms=chunks * chunk["ms"], draws_ms=chunks * chunk["draws_ms"],
+                        plain_ms=chunks * chunk["plain_ms"], bound_ms=chunks * chunk["bound_ms"], err=0.0,
+                        bound_by="bytes", gb=chunks * chunk["nbytes"] / 1e9)
+    return out
 
 
 def phase_card_vs_cpu(bvh, dicts, device, quantized=False, phase="8 card vs cpu"):
@@ -2856,8 +3079,8 @@ def main() -> int:
     parser.add_argument("--profile", type=Path, default=None, metavar="DIR",
                         help="also profile one warm path-traced frame on each layout and write the summaries to DIR")
     parser.add_argument("--kernels-only", action="store_true",
-                        help="run phases 1, 2, 3, 6 and 10 alone (the traversal kernels against their plain versions, "
-                             "with their times); prints neither the kernels line nor the last line")
+                        help="run phases 1, 2, 3, 6, 29 and 10 alone (the traversal and shading kernels against their "
+                             "plain versions, with their times); prints neither the kernels line nor the last line")
     args = parser.parse_args()
     smi = phase_device()
     phase_build()
@@ -2886,8 +3109,9 @@ def main() -> int:
         pt_bvh, dicts = build_pt_atrium()
         parts = pt_parts(pt_bvh, dicts, device)
         _, sets = phase_k2(pt_bvh, parts, device)
+        phase_shade(parts, device, smi)
         phase_k3(build_big_atrium(device), pt_bvh, parts[0], sets, device)
-        print("kernels only: phases 1, 2, 3, 6 and 10 passed", flush=True)
+        print("kernels only: phases 1, 2, 3, 6, 29 and 10 passed", flush=True)
         return 0
     # The CLI's tree (and phase 15's), and the bench's.
     cli_tree = native_tree()
@@ -2900,7 +3124,8 @@ def main() -> int:
     pt_bvh, dicts = build_pt_atrium()
     parts = pt_parts(pt_bvh, dicts, device)
     k2, sets = phase_k2(pt_bvh, parts, device)
-    k2_launches, ref64, pt_warm = phase_pt_main_path(parts, device, smi)
+    k2_launches, shade_launches, ref64, pt_warm = phase_pt_main_path(parts, device, smi)
+    shaded = phase_shade(parts, device, smi)
     pt_mean = float(ref64[..., :3].mean())
     shadow_sort_launches = phase_shadow_sort(parts, sets, pt_bvh, device, smi)
     phase_card_vs_cpu(pt_bvh, dicts, device)
@@ -2946,8 +3171,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
             "max_abs_err": max(x["err"] for x in results.values()), "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            # No PyTorch call traverses a BVH, and no single call computes a
-            # dependent chain.
+            # No PyTorch call traverses a BVH, no single call computes a
+            # dependent chain, and none shades a bounce.
             "library_ms": None,
             **extra,
         }
@@ -2972,6 +3197,9 @@ def main() -> int:
                 {key: r for (key, d), r in k5.items() if d == dtype}, "default",
                 card_filling=k5["card-filling", dtype])
           for short, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16))),
+        # Port only: the JAX package leaves a bounce's shading to XLA.
+        entry("bounce_shade", "minipath_tpu_torch/csrc/shade.cu", None, shade_launches, shaded, "bounce 0",
+              frame=shaded["frame"], by_bounce={k: v for k, v in shaded.items() if k != "frame"}),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

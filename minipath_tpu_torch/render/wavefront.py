@@ -6,10 +6,14 @@ in lean mode over a quantized ``QPTScene``, ``render/kernels_q.py``), masked
 BSDF sampling (Lambertian, metal with a Phong lobe, dielectric, emissive),
 next-event estimation with the MIS power heuristic, Russian roulette, and a
 sort-based compaction that moves dead paths to a suffix and regroups live
-ones by direction and position between bounces. The bounce loop is plain
-PyTorch around the kernel; it keeps the live-ray and shadow-candidate counts
-on the device and hands them to the kernel as tensors, so a frame makes no
-host sync per bounce.
+ones by direction and position between bounces. The bounce loop is PyTorch
+around the kernels; it keeps the live-ray and shadow-candidate counts on the
+device and hands them to the kernels as tensors, so a frame makes no host
+sync per bounce. A bounce's shading (everything between a closest-hit trace
+and the next compaction or trace, but the shadow trace) is one launch of the
+bounce-shading kernel on a card (:func:`_shade_kernel`, ``render/shade.py``)
+and plain PyTorch elsewhere (:func:`_shade_plain`, the kernel's reference);
+the two agree bit for bit on the card.
 
 Random numbers come from an explicit ``torch.Generator`` in place of
 ``jax.random`` keys. In Sobol mode (``sobol=True``) every camera, BSDF and
@@ -39,9 +43,11 @@ from minipath_tpu_torch.camera import CameraSampler
 from minipath_tpu_torch.geometry.ray import Rays
 from minipath_tpu_torch.parallel import replicate, shard_generators, shard_ranges
 from minipath_tpu_torch.render.frame import gen_frame_rays9, gen_rays9_blocks, rays9_to_rays, unpack_frame
-from minipath_tpu_torch.render.kernels import KernelHits, KernelScene, PTHits, PTScene, trace_packets_pt
+from minipath_tpu_torch.render.kernels import KernelHits, KernelScene, PTHits, PTScene, _live_count, trace_packets_pt
 from minipath_tpu_torch.render.kernels_q import QPTScene, QuantizedScene, trace_packets_q, trace_scene
-from minipath_tpu_torch.render.stratify import render_seed, strat1d, strat2d
+from minipath_tpu_torch.render.shade import STRAT_JITTER, STRAT_SOBOL
+from minipath_tpu_torch.render.shade import launch as launch_shade
+from minipath_tpu_torch.render.stratify import grid_factor, render_seed, strat1d, strat2d
 from minipath_tpu_torch.render.traversal import finalize_hits, trace_packets
 from minipath_tpu_torch.scene.bvh.build import BvhArrays
 from minipath_tpu_torch.scene.materials import (
@@ -581,6 +587,274 @@ def _shadow_batch(cand, origin, segment, wi, light_i=None, shadow_sort: str = "p
     )
 
 
+class _Strata(NamedTuple):
+    """The stratum parameters of one call of the bounce loop: a lane's
+    sample index and pixel id follow from its slot ``pixel`` (packets of
+    ``lanes`` lanes, ``block_pixels`` pixels a block, sample-major)."""
+
+    spp: int  # the stratum count over the whole render; negative: Sobol
+    offset: int  # the sample index of the call's first sample
+    seed: int  # the render's pairing seed, XORed into the pixel id
+    block_start: int  # the frame index of the first packet's pixel block
+    lanes: int
+    block_pixels: int
+
+
+class _ShadowQuery(NamedTuple):
+    """A NEE bounce's occlusion segments and what each adds if unblocked."""
+
+    cand: torch.Tensor  # (N,) bool: a segment to trace
+    origin: torch.Tensor  # (N, 3) surface end, pulled off the surface
+    segment: torch.Tensor  # (N, 3) to the light end, pulled back
+    wi: torch.Tensor  # (N, 3) unit direction to the light point
+    light: torch.Tensor  # (N,) the sampled light's index
+    contrib: torch.Tensor  # (N, 3) MIS-weighted radiance where unblocked
+
+
+def _shade_plain(state: _PathState, kh: KernelHits, materials: MaterialTable, env: Environment, lights, generator,
+                 *, bounce: int, nee_here: bool, shadow_rr: bool, rr_start: int, rr_floor: float,
+                 strata: _Strata | None, live=None):
+    """One bounce's shading over the hits ``kh`` of ``state``'s rays, in
+    plain PyTorch: the environment on a miss, BSDF sampling, the
+    MIS-weighted emitter hit, on a NEE bounce (``nee_here``) the light sample
+    and its contribution, and path roulette. Returns ``(next_state,
+    query)``: ``query`` is the bounce's :class:`_ShadowQuery`, or None
+    without NEE here; ``next_state.radiance`` leaves out the NEE light, which
+    the caller adds where the shadow trace finds no blocker. ``live`` is not
+    read: the plain version runs over every lane.
+
+    With NEE (``state.prev_pdf`` set), the light sample runs at diffuse and
+    glossy vertices: one light sample and occlusion segment a vertex,
+    combined with BSDF sampling by the MIS power heuristic. The uniforms
+    come from ``generator`` in a fixed order: the BSDF's four draws, then the
+    light's two and the shadow roulette's, then path roulette's."""
+    del live
+    nee = state.prev_pdf is not None
+    dev = state.origin.device
+    zero3 = torch.zeros_like(state.radiance)
+    with annotate("pt.environment_emission"):
+        found = kh.tri >= 0
+        hit = found & state.active
+        missed = ~found & state.active
+
+        # Environment on a miss (ends the path); it is not light-sampled,
+        # so it takes no MIS weight.
+        radiance = state.radiance + torch.where(
+            missed[:, None], state.throughput * env.radiance(state.direction), zero3
+        )
+
+    with annotate("pt.bsdf_scatter"):
+        # BSDF sampling at hits. With strata, each lane's sample index and
+        # pixel id come from `state.pixel` (the slot in packet layout,
+        # which compaction carries), with per-bounce, per-dimension salts.
+        strat_b = strat_nee = None
+        if strata is not None:
+            P0, bp0 = strata.lanes, strata.block_pixels
+            within = state.pixel % P0
+            s_idx = strata.offset + within // bp0
+            pid_s = ((state.pixel // P0 + strata.block_start) * bp0 + within % bp0) ^ strata.seed
+            strat_b = (s_idx, pid_s, strata.spp, 8 * bounce)
+            strat_nee = (s_idx, pid_s, strata.spp, 8 * bounce + 4)
+        new_dir, atten, emitted, terminate, bsdf_pdf, diffuse = scatter_full(
+            materials, generator, state.direction, kh.normal, kh.material, strat=strat_b
+        )
+    with annotate("pt.hit_emission"):
+        if nee:
+            # MIS: weight the emitter hit by how likely BSDF sampling was
+            # to find it, against NEE from the previous vertex.
+            pdf_l = hit_light_pdf(lights, kh.tri, state.direction, kh.t)
+            pp = state.prev_pdf
+            w_b = torch.where(pp > 0.0, pp * pp / (pp * pp + pdf_l * pdf_l), torch.ones_like(pp))
+            emitted = emitted * w_b[:, None]
+        radiance = radiance + torch.where(hit[:, None], state.throughput * emitted, zero3)
+        throughput = torch.where(hit[:, None], state.throughput * atten, state.throughput)
+
+        point = state.origin + state.direction * kh.t[:, None]
+        d_dot_n = torch.sum(state.direction * kh.normal, dim=-1, keepdim=True)
+        nf = torch.where(d_dot_n < 0, kh.normal, -kh.normal)
+
+    query = None
+    if nee_here:
+        with annotate("pt.nee_light_sample"):
+            # One light sample and one occlusion segment at every diffuse
+            # and glossy vertex; mirror and glass lanes are delta lobes
+            # NEE cannot cover, and keep full BSDF weight instead.
+            kindv, fuzzv, albedo, _ = material_rows(materials, kh.material)
+            glossy = (kindv == METAL) & (fuzzv >= GLOSSY_MIN_FUZZ)
+            cand = (diffuse | glossy) & hit
+            sh_o = point + nf * _EPS
+            y, wi, pdf_nee, em_l, cos_y, light_i = sample_lights(lights, generator, sh_o, strat=strat_nee)
+            cos_x = torch.sum(wi * nf, dim=-1)
+            cand = cand & (cos_x > 0.0) & (cos_y > 1e-6) & (pdf_nee > 0.0)
+            if shadow_rr:
+                # Shadow-ray Russian roulette: drop low-throughput
+                # candidates before the trace and reweight survivors by
+                # 1/q (unbiased).
+                q_rr = torch.clamp(throughput.amax(dim=-1), 0.05, 1.0)
+                u_rr = torch.rand(q_rr.shape, generator=generator, device=dev)
+                cand = cand & (u_rr < q_rr)
+                rr_w = 1.0 / q_rr
+            else:
+                rr_w = torch.ones_like(cos_x)
+            # Pull the light-side end back by an ABSOLUTE epsilon
+            # (matching the surface-side offset), so the blind zone near
+            # a light does not grow with its distance.
+            seg = y - wi * _EPS - sh_o
+            # BSDF value x cos and BSDF pdf toward the light, per lobe:
+            # Lambertian albedo/pi * cos_x (pdf cos_x/pi); glossy
+            # albedo * phong_pdf (the lobe's implied BRDF), pdf phong_pdf.
+            refl_v = _normalize(_reflect(state.direction, nf))
+            lobe_pdf_l = phong_pdf(phong_exponent(fuzzv), torch.sum(wi * refl_v, dim=-1))
+            pdf_b_l = torch.where(glossy, lobe_pdf_l, cos_x / _PI)
+            fcos = torch.where(glossy[:, None], albedo * lobe_pdf_l[:, None], albedo / _PI * cos_x[:, None])
+            w_nee = pdf_nee * pdf_nee / (pdf_nee * pdf_nee + pdf_b_l * pdf_b_l)
+            contrib = state.throughput * fcos * em_l * (w_nee / pdf_nee * rr_w)[:, None]
+            query = _ShadowQuery(cand, sh_o, seg, wi, light_i, contrib)
+
+    with annotate("pt.roulette_update"):
+        # Dielectric transmission crosses the surface: offset along the
+        # new direction's side of the surface instead of the facing
+        # normal.
+        offset_dir = torch.where(torch.sum(new_dir * nf, dim=-1, keepdim=True) >= 0, nf, -nf)
+        new_origin = point + offset_dir * _EPS
+        inv = torch.where(new_dir == 0.0, torch.full_like(new_dir, torch.inf), 1.0 / new_dir)
+
+        active = hit & ~terminate
+        # Russian roulette from `rr_start` on: survival probability is
+        # the largest throughput channel (floored), survivors reweighted.
+        if bounce >= rr_start:
+            p_continue = torch.clamp(throughput.amax(dim=-1), rr_floor, 1.0)
+            survived = torch.rand(active.shape, generator=generator, device=dev) < p_continue
+            throughput = torch.where(
+                (active & survived)[:, None], throughput / p_continue[:, None], throughput
+            )
+            active = active & survived
+
+        state = _PathState(
+            origin=torch.where(hit[:, None], new_origin, state.origin),
+            direction=torch.where(hit[:, None], new_dir, state.direction),
+            inv_direction=torch.where(hit[:, None], inv, state.inv_direction),
+            throughput=throughput,
+            radiance=radiance,
+            pixel=state.pixel,
+            active=active,
+            # Diffuse and glossy vertices carry their lobe pdf into the
+            # next vertex's MIS; vertices past nee_max_depth carry 0
+            # (their direct light was not light-sampled).
+            prev_pdf=(
+                torch.where(hit, bsdf_pdf, torch.zeros_like(bsdf_pdf))
+                if nee_here
+                else (torch.zeros_like(bsdf_pdf) if nee else None)
+            ),
+        )
+    return state, query
+
+
+def _rows(x: torch.Tensor, dtype=torch.float32):
+    """``x`` with the dtype the shading kernel reads and a contiguous last
+    axis, and its row stride in elements."""
+    x = x.to(dtype)
+    if x.dim() == 2 and x.stride(-1) != 1:
+        x = x.contiguous()
+    return x, x.stride(0)
+
+
+def _shade_kernel(state: _PathState, kh: KernelHits, materials: MaterialTable, env: Environment, lights, generator,
+                  *, bounce: int, nee_here: bool, shadow_rr: bool, rr_start: int, rr_floor: float,
+                  strata: _Strata | None, live=None):
+    """:func:`_shade_plain` as one launch of the bounce-shading kernel
+    (``render/shade.py``, ``csrc/shade.cu``) over the lanes of ``state``, on
+    their card. ``live`` (None, an int or a one-element device tensor) is
+    the live prefix the kernel reads from device memory: the lanes past it
+    only carry their state over.
+
+    The uniforms are drawn here, before the launch, as the plain version
+    draws them (the same calls, shapes and order), so the same generator
+    gives both versions the same numbers and leaves it in the same state."""
+    N = state.origin.shape[0]
+    dev = state.origin.device
+    nee = state.prev_pdf is not None
+    sobol = strata is not None and strata.spp < 0
+
+    def rand(*shape):
+        return torch.rand(shape, generator=generator, device=dev)
+
+    u_z = u_phi = u_lobe = u_choice = u_light = u_tri = u_rr = u_path = None
+    if not sobol:
+        u_z, u_phi, u_lobe, u_choice = rand(N), rand(N), rand(N, 2), rand(N)
+    if nee_here:
+        if not sobol:
+            u_light, u_tri = rand(N), rand(N, 2)
+        if shadow_rr:
+            u_rr = rand(N)
+    if bounce >= rr_start:
+        u_path = rand(N)
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    out = _PathState(
+        origin=empty(N, 3), direction=empty(N, 3), inv_direction=empty(N, 3), throughput=empty(N, 3),
+        radiance=empty(N, 3), pixel=state.pixel, active=empty(N, dtype=torch.bool),
+        prev_pdf=empty(N) if nee else None,
+    )
+    query = None
+    if nee_here:
+        query = _ShadowQuery(cand=empty(N, dtype=torch.bool), origin=empty(N, 3), segment=empty(N, 3),
+                             wi=empty(N, 3), light=empty(N, dtype=torch.int32), contrib=empty(N, 3))
+    strat = {}
+    if strata is not None:
+        spp = abs(strata.spp)
+        gx, gy = grid_factor(spp)
+        strat = dict(
+            strat_mode=STRAT_SOBOL if sobol else STRAT_JITTER, spp=spp, gx=gx, gy=gy, inv_spp=1.0 / spp,
+            inv_gx=1.0 / gx, inv_gy=1.0 / gy, strat_offset=strata.offset, strat_seed=strata.seed,
+            block_start=strata.block_start, lanes=strata.lanes, block_pixels=strata.block_pixels,
+            salt_bsdf=8 * bounce, salt_nee=8 * bounce + 4,
+        )
+    light_rows = {}
+    if nee:
+        light_rows = dict(
+            l_v0=lights.v0.contiguous(), l_e1=lights.e1.contiguous(), l_e2=lights.e2.contiguous(),
+            l_normal=lights.normal.contiguous(), l_area=lights.area.contiguous(),
+            l_emission=lights.emission.contiguous(), l_pmf=lights.pmf.contiguous(), l_cdf=lights.cdf.contiguous(),
+            l_tri_light=lights.tri_light.to(torch.int32).contiguous(), n_lights=lights.cdf.shape[0],
+        )
+    normal, s_normal = _rows(kh.normal)
+    origin, s_origin = _rows(state.origin)
+    direction, s_direction = _rows(state.direction)
+    inv_direction, s_inv_direction = _rows(state.inv_direction)
+    throughput, s_throughput = _rows(state.throughput)
+    radiance, s_radiance = _rows(state.radiance)
+    pixel, s_pixel = _rows(state.pixel, torch.int32)
+    active, s_active = _rows(state.active, torch.bool)
+    prev_pdf, s_prev_pdf = _rows(state.prev_pdf) if nee else (None, 0)
+    launch_shade(
+        dev, n=N, live=_live_count(live, dev),
+        t=kh.t.to(torch.float32).contiguous(), tri=kh.tri.to(torch.int32).contiguous(), normal=normal,
+        s_normal=s_normal, material=kh.material.to(torch.int32).contiguous(),
+        origin=origin, s_origin=s_origin, direction=direction, s_direction=s_direction,
+        inv_direction=inv_direction, s_inv_direction=s_inv_direction, throughput=throughput,
+        s_throughput=s_throughput, radiance=radiance, s_radiance=s_radiance, pixel=pixel, s_pixel=s_pixel,
+        active=active, s_active=s_active, prev_pdf=prev_pdf, s_prev_pdf=s_prev_pdf,
+        u_z=u_z, u_phi=u_phi, u_lobe=u_lobe, u_choice=u_choice, u_light=u_light, u_tri=u_tri, u_rr=u_rr,
+        u_path=u_path,
+        kind=materials.kind.to(torch.int32).contiguous(), albedo=materials.albedo.contiguous(),
+        emission=materials.emission.contiguous(), param=materials.param.contiguous(),
+        horizon=env.horizon.to(torch.float32).contiguous(), zenith=env.zenith.to(torch.float32).contiguous(),
+        **light_rows, **strat,
+        nee=int(nee), nee_here=int(nee_here), shadow_rr=int(shadow_rr), roulette=int(bounce >= rr_start),
+        rr_floor=float(rr_floor),
+        o_origin=out.origin, o_direction=out.direction, o_inv_direction=out.inv_direction,
+        o_throughput=out.throughput, o_radiance=out.radiance, o_active=out.active, o_prev_pdf=out.prev_pdf,
+        **({} if query is None else dict(cand=query.cand, sh_origin=query.origin, segment=query.segment,
+                                         wi=query.wi, light=query.light, contrib=query.contrib)),
+    )
+    if recording():
+        count("pt.shade_kernel_lanes", N)
+    return out, query
+
+
 def _pt_chunk(tracer_state, materials, env, sampler, generator, *, width, height, px_block, samples,
               strat_spp, strat_offset, strat_seed, **kw):
     """Trace ``samples`` spp of camera paths; returns ``(B0, bp, 3)`` RGB
@@ -665,7 +939,10 @@ def _pt_trace(
         ),
         prev_pdf=torch.zeros((N,), dtype=torch.float32, device=dev) if nee else None,
     )
-    zero3 = torch.zeros((N, 3), dtype=torch.float32, device=dev)
+    strata = None if strat_spp is None else _Strata(strat_spp, strat_offset, strat_seed, block_start, P0, P0 // samples)
+    # The device decides the shading: one kernel a bounce on a card, the
+    # plain PyTorch version (its reference) elsewhere.
+    shade = _shade_kernel if dev.type == "cuda" else _shade_plain
 
     for bounce in range(bounces):
         live = live_rays
@@ -690,128 +967,26 @@ def _pt_trace(
                 count("pt.live_lanes", live if compaction else state.active.sum(dtype=torch.int32))
         with annotate("pt.trace"):
             kh = tracer(tracer_state, state.origin, state.direction, state.inv_direction, live)
-        with annotate("pt.environment_emission"):
-            found = kh.tri >= 0
-            hit = found & state.active
-            missed = ~found & state.active
-
-            # Environment on a miss (ends the path); it is not light-sampled,
-            # so it takes no MIS weight.
-            radiance = state.radiance + torch.where(
-                missed[:, None], state.throughput * env.radiance(state.direction), zero3
-            )
-
-        with annotate("pt.bsdf_scatter"):
-            # BSDF sampling at hits. With strata, each lane's sample index and
-            # pixel id come from `state.pixel` (the slot in packet layout,
-            # which compaction carries), with per-bounce, per-dimension salts.
-            strat_b = strat_nee = None
-            if strat_spp is not None:
-                bp0 = P0 // samples
-                within = state.pixel % P0
-                s_idx = strat_offset + within // bp0
-                pid_s = ((state.pixel // P0 + block_start) * bp0 + within % bp0) ^ strat_seed
-                strat_b = (s_idx, pid_s, strat_spp, 8 * bounce)
-                strat_nee = (s_idx, pid_s, strat_spp, 8 * bounce + 4)
-            new_dir, atten, emitted, terminate, bsdf_pdf, diffuse = scatter_full(
-                materials, generator, state.direction, kh.normal, kh.material, strat=strat_b
-            )
-        with annotate("pt.hit_emission"):
-            if nee:
-                # MIS: weight the emitter hit by how likely BSDF sampling was
-                # to find it, against NEE from the previous vertex.
-                pdf_l = hit_light_pdf(lights, kh.tri, state.direction, kh.t)
-                pp = state.prev_pdf
-                w_b = torch.where(pp > 0.0, pp * pp / (pp * pp + pdf_l * pdf_l), torch.ones_like(pp))
-                emitted = emitted * w_b[:, None]
-            radiance = radiance + torch.where(hit[:, None], state.throughput * emitted, zero3)
-            throughput = torch.where(hit[:, None], state.throughput * atten, state.throughput)
-
-            point = state.origin + state.direction * kh.t[:, None]
-            d_dot_n = torch.sum(state.direction * kh.normal, dim=-1, keepdim=True)
-            nf = torch.where(d_dot_n < 0, kh.normal, -kh.normal)
-
         nee_here = nee and (nee_max_depth is None or bounce < nee_max_depth)
-        if nee_here:
-            with annotate("pt.nee_light_sample"):
-                # One light sample and one occlusion segment at every diffuse
-                # and glossy vertex; mirror and glass lanes are delta lobes
-                # NEE cannot cover, and keep full BSDF weight instead.
-                kindv, fuzzv, albedo, _ = material_rows(materials, kh.material)
-                glossy = (kindv == METAL) & (fuzzv >= GLOSSY_MIN_FUZZ)
-                cand = (diffuse | glossy) & hit
-                sh_o = point + nf * _EPS
-                y, wi, pdf_nee, em_l, cos_y, light_i = sample_lights(lights, generator, sh_o, strat=strat_nee)
-                cos_x = torch.sum(wi * nf, dim=-1)
-                cand = cand & (cos_x > 0.0) & (cos_y > 1e-6) & (pdf_nee > 0.0)
-                if shadow_rr:
-                    # Shadow-ray Russian roulette: drop low-throughput
-                    # candidates before the trace and reweight survivors by
-                    # 1/q (unbiased).
-                    q_rr = torch.clamp(throughput.amax(dim=-1), 0.05, 1.0)
-                    u_rr = torch.rand(q_rr.shape, generator=generator, device=dev)
-                    cand = cand & (u_rr < q_rr)
-                    rr_w = 1.0 / q_rr
-                else:
-                    rr_w = torch.ones_like(cos_x)
-                # Pull the light-side end back by an ABSOLUTE epsilon
-                # (matching the surface-side offset), so the blind zone near
-                # a light does not grow with its distance.
-                seg = y - wi * _EPS - sh_o
+        with annotate("pt.shade"):
+            state, query = shade(
+                state, kh, materials, env, lights, generator, bounce=bounce, nee_here=nee_here,
+                shadow_rr=shadow_rr, rr_start=rr_start, rr_floor=rr_floor, strata=strata, live=live,
+            )
+        if query is not None:
             with annotate("pt.shadow_trace"):
-                o_s, s_s, n_cand, order = _shadow_batch(cand, sh_o, seg, wi, light_i, shadow_sort)
+                o_s, s_s, n_cand, order = _shadow_batch(
+                    query.cand, query.origin, query.segment, query.wi, query.light, shadow_sort
+                )
                 count("pt.shadow_rays", n_cand)
                 occ_s = shadow_tracer(tracer_state, o_s, s_s, n_cand)
                 occluded = torch.empty_like(occ_s)
                 occluded[order] = occ_s
-            with annotate("pt.nee_light_sample"):
-                # BSDF value x cos and BSDF pdf toward the light, per lobe:
-                # Lambertian albedo/pi * cos_x (pdf cos_x/pi); glossy
-                # albedo * phong_pdf (the lobe's implied BRDF), pdf phong_pdf.
-                refl_v = _normalize(_reflect(state.direction, nf))
-                lobe_pdf_l = phong_pdf(phong_exponent(fuzzv), torch.sum(wi * refl_v, dim=-1))
-                pdf_b_l = torch.where(glossy, lobe_pdf_l, cos_x / _PI)
-                fcos = torch.where(glossy[:, None], albedo * lobe_pdf_l[:, None], albedo / _PI * cos_x[:, None])
-                w_nee = pdf_nee * pdf_nee / (pdf_nee * pdf_nee + pdf_b_l * pdf_b_l)
-                contrib = state.throughput * fcos * em_l * (w_nee / pdf_nee * rr_w)[:, None]
-                radiance = radiance + torch.where((cand & ~occluded)[:, None], contrib, zero3)
-
-        with annotate("pt.roulette_update"):
-            # Dielectric transmission crosses the surface: offset along the
-            # new direction's side of the surface instead of the facing
-            # normal.
-            offset_dir = torch.where(torch.sum(new_dir * nf, dim=-1, keepdim=True) >= 0, nf, -nf)
-            new_origin = point + offset_dir * _EPS
-            inv = torch.where(new_dir == 0.0, torch.full_like(new_dir, torch.inf), 1.0 / new_dir)
-
-            active = hit & ~terminate
-            # Russian roulette from `rr_start` on: survival probability is
-            # the largest throughput channel (floored), survivors reweighted.
-            if bounce >= rr_start:
-                p_continue = torch.clamp(throughput.amax(dim=-1), rr_floor, 1.0)
-                survived = torch.rand(active.shape, generator=generator, device=dev) < p_continue
-                throughput = torch.where(
-                    (active & survived)[:, None], throughput / p_continue[:, None], throughput
-                )
-                active = active & survived
-
-            state = _PathState(
-                origin=torch.where(hit[:, None], new_origin, state.origin),
-                direction=torch.where(hit[:, None], new_dir, state.direction),
-                inv_direction=torch.where(hit[:, None], inv, state.inv_direction),
-                throughput=throughput,
-                radiance=radiance,
-                pixel=state.pixel,
-                active=active,
-                # Diffuse and glossy vertices carry their lobe pdf into the
-                # next vertex's MIS; vertices past nee_max_depth carry 0
-                # (their direct light was not light-sampled).
-                prev_pdf=(
-                    torch.where(hit, bsdf_pdf, torch.zeros_like(bsdf_pdf))
-                    if nee_here
-                    else (torch.zeros_like(bsdf_pdf) if nee else None)
-                ),
-            )
+            with annotate("pt.shade"):
+                # The light that reached the vertex, added last, as the
+                # estimator sums it.
+                lit = (query.cand & ~occluded)[:, None]
+                state = state._replace(radiance=state.radiance + torch.where(lit, query.contrib, 0.0))
 
     # `pixel` is a permutation of the slots, so the sum is exact.
     rad = torch.zeros((N, 3), dtype=torch.float32, device=dev).index_add_(0, state.pixel.long(), state.radiance)

@@ -12,9 +12,10 @@ compaction, BSDF sampling only. It reports:
    seconds the frame spends between chunks;
 3. a ``torch.profiler`` run over one warm chunk, which splits the chunk's
    device time by the phases the bounce loop annotates
-   (``render/wavefront.py::_pt_trace``: compaction, trace, environment and
-   emission, BSDF scatter, NEE light sample, shadow trace, roulette and the
-   state update), in total and bounce by bounce. This replaces the
+   (``render/wavefront.py::_pt_trace``: compaction, trace, the shading, and
+   the shadow trace; on the CPU the shading's own phases: environment and
+   emission, BSDF scatter, NEE light sample, roulette and the state
+   update), in total and bounce by bounce. This replaces the
    reference's eager re-run of the chunk with a jit boundary between
    phases. A kernel counts to the innermost annotated phase whose host code
    launched it; what no phase launched (the camera rays, the final sums) is
@@ -59,9 +60,11 @@ BOUNCES = 5
 PACKET = 2048
 TIMED_FRAMES = 2
 TIMED_CHUNKS = 3
-# The annotated phases of the bounce loop, in loop order.
+# The annotated phases of the bounce loop, in loop order. On a card a
+# bounce's shading is one kernel inside `pt.shade`; on the CPU the plain
+# shading's five phases nest inside it, and the split reports those.
 PHASES = (
-    "pt.compaction", "pt.trace", "pt.environment_emission", "pt.bsdf_scatter", "pt.hit_emission",
+    "pt.compaction", "pt.trace", "pt.shade", "pt.environment_emission", "pt.bsdf_scatter", "pt.hit_emission",
     "pt.nee_light_sample", "pt.shadow_trace", "pt.roulette_update",
 )
 # K2 closest-hit's kernel, as the profiler names it.
@@ -71,12 +74,15 @@ K2_CLOSEST = "traverse_kernel<true, false>"
 def phase_split(events, cuda: bool):
     """Per-phase milliseconds (device time on a card, host time on the CPU)
     of a profiled chunk, in total and per bounce; a bounce starts at its
-    compaction, or at a trace that follows the previous state update."""
+    compaction, or at a trace that follows no compaction. On the CPU
+    ``pt.shade`` is left out: its host time is that of the phases inside
+    it."""
     totals = dict.fromkeys(PHASES, 0.0)
     per_bounce = []
     last = None
-    for name, ms in annotated_ms(events, PHASES, cuda):
-        if not per_bounce or name == "pt.compaction" or (name == "pt.trace" and last == "pt.roulette_update"):
+    names = PHASES if cuda else tuple(n for n in PHASES if n != "pt.shade")
+    for name, ms in annotated_ms(events, names, cuda):
+        if not per_bounce or name == "pt.compaction" or (name == "pt.trace" and last != "pt.compaction"):
             per_bounce.append(dict.fromkeys(PHASES, 0.0))
         totals[name] += ms
         per_bounce[-1][name] += ms

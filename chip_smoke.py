@@ -225,6 +225,16 @@ Phases 27 and 28 run after phase 26:
     their plain versions, and the native tree of ``make_atrium(0)``, held to
     the checkout's bit for bit.
 
+Phase 30 runs after phase 11:
+
+30. The ``q16-600k-1080p64`` cell's path: the big atrium built as the CLI
+    builds it under ``--layout q16`` (natively, leaves of up to 56
+    triangles, ``layout="q16"``), K3 over its first main-path dispatch's
+    first 524,288 rays against its plain version, then one ``render()``
+    frame in tile mode at 1920x1080 @ 64 spp, 64-px tiles, with a
+    finished-tile callback, its launches counted from zero: 16 K3 full
+    launches (8 dispatches of two 32-spp passes) and no other traversal.
+
 Phase 29 runs after phase 7:
 
 29. The bounce-shading kernel (``csrc/shade.cu``) against its plain version
@@ -1709,6 +1719,57 @@ def phase_q_main_path(big, device, smi):
     return launches
 
 
+def phase_q16_cell(device, smi) -> dict:
+    """The ``q16-600k-1080p64`` cell's path on its own tree: K3 over the
+    first dispatch's slice against ``trace_packets_q_reference``, then one
+    warm ``render()`` frame in tile mode with a callback; returns that
+    frame's traversal launches."""
+    from minipath_tpu_torch import RenderSettings, Scene, render
+    from minipath_tpu_torch.render import kernels_q
+    from minipath_tpu_torch.scene.procedural import make_atrium
+    from minipath_tpu_torch.scene.triangle_bvh import TriangleBvh
+
+    t0 = time.perf_counter()
+    bvh = TriangleBvh.build(make_atrium(BIG_TRIANGLES), use_native=True, leaf_max=56, layout="q16")
+    built = time.perf_counter() - t0
+    q, ss = bvh.kernel_scene(device), bvh.recommended_stack_size
+    if not isinstance(q, kernels_q.QuantizedScene):
+        raise AssertionError(f"layout 'q16': kernel_scene is a {type(q).__name__}")
+    gen = torch.Generator(device=device).manual_seed(0)
+    part = dispatch_rays9(bench_camera().build_sampler((WIDTH, HEIGHT), device), device, gen)[:DISPATCH_SLICE]
+    got = kernels_q.trace_packets_q(q, part, stack_size=ss)
+    torch.cuda.synchronize()
+    text, _ = compare("full closest-hit, the cell's tree, dispatch slice", got, kernels_q.trace_packets_q_reference(
+        q, part, stack_size=ss))
+    del got, part
+
+    tiles = []
+    settings = RenderSettings(TILE, SPP, (WIDTH, HEIGHT))
+
+    def frame():
+        tiles.clear()
+        p = render(Scene(bvh), bench_camera(), settings, finished_tile_callback=lambda t, snap: tiles.append(t),
+                   device=device, seed=1)
+        p.wait()
+        return p, p.image()
+
+    frame()
+    reset_launches()
+    p, img = frame()
+    launches = {k: v for k, v in kernel_launch_counts().items() if v}
+    if launches != {"K3 full": 16}:
+        raise AssertionError(f"the cell's render() frame launched {launches}, not 16 K3 full launches and no other")
+    n_tiles = -(-WIDTH // TILE) * -(-HEIGHT // TILE)
+    if len(tiles) != n_tiles or img.shape != (HEIGHT, WIDTH, 4) or not (img[..., 3] > 0).any():
+        raise AssertionError(f"{len(tiles)} tiles called back, image {img.shape} with no hit or short")
+    stats = bvh.statistics()
+    log("30 q16 cell", f"the cell's tree ({stats['triangles']} triangles, {stats['inner_nodes']} inner nodes, max "
+        f"depth {stats['max_depth']}, stack {ss}, built in {built:.1f}s, {bvh.quantized_scene_bytes() / 1e6:.2f} MB "
+        f"quantized) | {text} | render() {WIDTH}x{HEIGHT} @ {p.spp_effective} spp, tile mode, {len(tiles)} tiles "
+        f"called back, on {smi}: warm frame {p.elapsed():.3f} s | launches {launches}")
+    return launches
+
+
 def phase_q_pt(big, pt_bvh, dicts, device, smi, f32_mean):
     """The path tracer over the quantized layout: bench.py's bench_pt_big,
     then phase 7's NEE-capped frame over the path-traced atrium's QPTScene,
@@ -3143,11 +3204,13 @@ def main() -> int:
     k3 = phase_k3(big, pt_bvh, parts[0], sets, device)
     del sets
     q_launches = phase_q_main_path(big, device, smi)
+    q16_cell = phase_q16_cell(device, smi)
     for mode, n in phase_q_pt(big, pt_bvh, dicts, device, smi, pt_mean).items():
         q_launches[mode] += n
     if args.profile is not None:
         profile_pt_frame(pt_parts(pt_bvh, dicts, device, quantized=True), device, args.profile, name="pt_q")
     by_path = phase_sharded(bvh, big, parts, ref64, pt_warm, device, smi)
+    by_path["q16-600k-1080p64 render()"] = q16_cell
     by_path["adaptive pt"] = phase_adaptive(parts, pt_mean, device, smi)
     by_path["two-level pt"] = phase_twolevel(pt_bvh, parts, ref64, pt_warm, device, smi)
     del big, pt_bvh, parts, ref64
@@ -3178,7 +3241,7 @@ def main() -> int:
         }
 
     def paths(kernel):
-        """Phases 17-19, 21-24 and 26's launches of one kernel, by path (the
+        """Phases 17-19, 21-24, 26 and 30's launches of one kernel, by path (the
         tools' as each subprocess counted them)."""
         out = {path: sum(n for k, n in counts.items() if k.split()[0] == kernel) for path, counts in by_path.items()}
         return {path: n for path, n in out.items() if n}

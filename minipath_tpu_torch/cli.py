@@ -29,6 +29,12 @@ than there are exits 2. ``--adaptive`` path traces with
 noisy pixel blocks); it is single-device, uses jittered strata, and leaves
 ``--denoise`` the fixed-sigma filter.
 
+``--layout`` picks the scene layout the kernels trace
+(``TriangleBvh.layout``): ``auto`` (the default) the f32 layout (K1, K2)
+unless its bytes exceed half the card's memory, ``q16`` the 16-bit
+quantized one (K3). A tree that the quantized layout cannot hold (spatial
+splits, material ids above 65535) exits 2 under ``--layout q16``.
+
 ``--trace-out PATH`` records the program's spans and counters
 (``utils/profiling.py``) for the run and writes them at exit as a Chrome
 trace, which opens beside a ``torch.profiler`` trace.
@@ -39,6 +45,8 @@ from __future__ import annotations
 import argparse
 import sys
 import time
+
+from minipath_tpu_torch.scene.triangle_bvh import LAYOUTS
 
 
 # --adaptive's pilot samples and chunk (render_frame_pt_adaptive's defaults).
@@ -55,6 +63,12 @@ def _positive_int(text: str) -> int:
 def _progress_bar(finished: int, total: int, width: int = 40) -> str:
     filled = int(width * finished / total) if total else width
     return "[" + "#" * filled + "-" * (width - filled) + f"] {finished}/{total}"
+
+
+def add_layout_argument(p: argparse.ArgumentParser) -> None:
+    """``--layout``, shared with the GUI."""
+    p.add_argument("--layout", choices=LAYOUTS, default="auto", help="scene layout the kernels trace: 'auto' = f32 "
+                   "unless it exceeds half the card's memory, or 'q16' = the 16-bit quantized layout (K3)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -110,31 +124,48 @@ def build_parser() -> argparse.ArgumentParser:
                    "allocates the --spp budget toward noisy pixel blocks (unbiased; single-device; needs --spp >= 10)")
     p.add_argument("--clamp", type=float, default=None, metavar="L", help="path tracer: cap each sample's "
                    "radiance at L before averaging (firefly suppression; biased)")
+    add_layout_argument(p)
     p.add_argument("--trace-out", metavar="PATH", default=None, help="write the run's spans and counters as a "
                    "Chrome trace to PATH")
     return p
 
 
 def load_scene(args):
-    """``(bvh, material dicts or None)`` for the chosen scene. The atrium is
-    built by the native C++ code (``scene/bvh/native.py``), which raises
-    where it cannot be compiled."""
+    """``(bvh, material dicts or None)`` for the chosen scene, its layout
+    ``args.layout``. The atrium is built by the native C++ code
+    (``scene/bvh/native.py``), which raises where it cannot be compiled."""
     from minipath_tpu_torch.scene import procedural
     from minipath_tpu_torch.scene.triangle_bvh import TriangleBvh
 
+    layout = args.layout
     if args.scene == "atrium":
         mesh = procedural.make_atrium()
         if args.integrator == "pt":
             # The benchmark material set: emissive ceiling panels, metal and
             # glass props, so --nee has lights.
             ids, dicts = procedural.atrium_materials(mesh)
-            return TriangleBvh.build(mesh, materials=ids, use_native=True), dicts
-        return TriangleBvh.build(mesh, use_native=True), None
+            return TriangleBvh.build(mesh, materials=ids, use_native=True, layout=layout), dicts
+        return TriangleBvh.build(mesh, use_native=True, layout=layout), None
     if args.scene == "obj" and args.obj:
-        return TriangleBvh.with_obj(args.obj), None
+        return TriangleBvh.with_obj(args.obj, layout=layout), None
     if args.scene == "obj":
         print("no --obj given; rendering procedural sphere", file=sys.stderr)
-    return TriangleBvh.build(procedural.make_uv_sphere(1.0, rings=32, segments=64)), None
+    return TriangleBvh.build(procedural.make_uv_sphere(1.0, rings=32, segments=64), layout=layout), None
+
+
+def quantize_for_layout(args, bvh) -> bool:
+    """Under ``--layout q16``, build the quantized layout on ``args.device``
+    before the render (the tree caches it); False, with the reason on
+    standard error, where the tree cannot take it (spatial splits, material
+    ids above 65535). True for the other layouts, which build nothing here."""
+    if bvh.layout != "q16":
+        return True
+    try:
+        bvh.quantized_scene(args.device)
+    except ValueError as e:
+        print(f"--layout q16: {e}", file=sys.stderr)
+        return False
+    return True
 
 
 def main(argv=None) -> int:
@@ -184,6 +215,8 @@ def _run(args) -> int:
     bvh, material_dicts = load_scene(args)
     if not args.no_stats:
         bvh.print_statistics()
+    if not quantize_for_layout(args, bvh):
+        return 2
 
     camera = (
         Camera()

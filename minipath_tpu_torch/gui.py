@@ -13,7 +13,8 @@ All behavior lives in the two headless controllers (unit-testable without
 a display); :func:`main` wraps one in a thin Tk shell. The controller polls
 a thread-safe tile queue, the render thread drives the device, and the UI
 thread just blits. The device is explicit (``--device``, default ``cuda``);
-there is no fallback to another device.
+there is no fallback to another device. ``--layout`` picks the scene layout
+as the CLI's does (``cli.py``).
 
 A render that failed is not swallowed: :meth:`GuiController.update` and
 :meth:`GuiController.cancel_previous_render` re-raise its error (through
@@ -33,6 +34,7 @@ import numpy as np
 import torch
 
 from minipath_tpu_torch.camera import Camera
+from minipath_tpu_torch.cli import add_layout_argument
 from minipath_tpu_torch.render import RenderSettings, render
 from minipath_tpu_torch.scene import Scene
 from minipath_tpu_torch.utils import LUMA_WEIGHTS
@@ -379,6 +381,7 @@ def build_parser() -> argparse.ArgumentParser:
         help="pt = progressive path-traced viewport (accumulates spp forever)",
     )
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda", help="torch device to render on")
+    add_layout_argument(p)
     return p
 
 
@@ -388,9 +391,11 @@ def main(argv=None) -> int:
         print("--device cuda: no CUDA device is available", file=sys.stderr)
         return 2
 
-    from minipath_tpu_torch.cli import load_scene
+    from minipath_tpu_torch.cli import load_scene, quantize_for_layout
 
     bvh, material_dicts = load_scene(args)
+    if not quantize_for_layout(args, bvh):
+        return 2
     camera = (
         Camera()
         .look_at((0.0, 2.0, 10.0), (0.0, 1.5, 0.0))
@@ -414,8 +419,8 @@ def main(argv=None) -> int:
 
 def _make_pt_controller(args, bvh, camera, material_dicts):
     """Build a :class:`ProgressivePtController` over the lean tracer on
-    ``args.device`` (``bvh.pt_scene`` picks the f32 or the quantized layout
-    by its bytes; on the CPU the same tracer runs its plain version)."""
+    ``args.device`` (``bvh.pt_scene`` takes the f32 or the quantized layout
+    by ``--layout``; on the CPU the same tracer runs its plain version)."""
     from minipath_tpu_torch.render.denoise import render_aux
     from minipath_tpu_torch.render.wavefront import make_pt_tracer, render_frame_pt
     from minipath_tpu_torch.scene.materials import lambertian, material_table

@@ -60,6 +60,7 @@ from minipath_tpu_torch.render.kernels import (
 )
 from minipath_tpu_torch.scene.bvh import links as L
 from minipath_tpu_torch.scene.bvh.build import BvhArrays, from_numpy
+from minipath_tpu_torch.utils.profiling import count
 
 _SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "traverse_q.cu"
 _NULL = L.NULL_LINK
@@ -297,7 +298,9 @@ def trace_packets_q(
     On CUDA tensors this launches the kernel (and raises if it cannot); on
     CPU tensors it runs :func:`trace_packets_q_reference`.
     ``trace_packets_q.launches`` counts kernel launches per mode
-    (``full``, ``closest``, ``anyhit``).
+    (``full``, ``closest``, ``anyhit``); while tracing is on
+    (``utils/profiling.py``), the counter ``k3.rays`` adds the rays of each
+    call, ``B * P``, from the batch's shape.
     """
     if anyhit and not lean:
         raise ValueError("anyhit=True requires lean=True")
@@ -305,6 +308,7 @@ def trace_packets_q(
     rb = scene.root_box
     if rb.device != rays9.device or rb.dtype != torch.float32 or rb.numel() != 6 or not rb.is_contiguous():
         raise ValueError(f"scene.root_box must be 6 contiguous float32 on {rays9.device}")
+    count("k3.rays", rays9.shape[0] * rays9.shape[2])
     kw = dict(stack_size=stack_size, t_max=t_max, live_packets=live_packets, lean=lean, anyhit=anyhit)
     if rays9.device.type == "cpu":
         return trace_packets_q_reference(scene, rays9, **kw)

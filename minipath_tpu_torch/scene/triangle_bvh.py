@@ -10,12 +10,17 @@ kernels on a chosen device.
 
 Two layouts exist: f32 (K1, K2) and the 16-bit quantized one (K3, about
 half the bytes: :meth:`TriangleBvh.f32_scene_bytes` and
-:meth:`TriangleBvh.quantized_scene_bytes`). ``kernel_scene`` and ``pt_scene`` take the f32 layout unless
-its bytes exceed :data:`SCENE_BUDGET_BYTES`, as the JAX package's
-``TriangleBvh.pallas_scene`` does against its VMEM budget; the choice is
-made from the array shapes, before either layout is built, and an error in
-the chosen layout raises instead of falling back. ``quantized_scene`` and
-``quantized_pt_scene`` ask for the quantized layout outright.
+:meth:`TriangleBvh.quantized_scene_bytes`). ``kernel_scene`` and
+``pt_scene`` take the one that the tree's ``layout`` names (one of
+:data:`LAYOUTS`, given when the tree is built: the CLI's and the GUI's
+``--layout``). ``"q16"`` asks for the quantized layout outright;
+``"auto"``, the default, takes the f32 layout unless its bytes exceed
+:data:`SCENE_BUDGET_BYTES`, as the JAX package's ``TriangleBvh.pallas_scene``
+does against its VMEM budget. The choice is made from the array shapes,
+before either layout is built, and an error in the chosen layout raises
+instead of falling back: a ``"q16"`` tree built with spatial splits, or with
+material ids above 65535, raises ``ValueError``. ``quantized_scene`` and
+``quantized_pt_scene`` build the quantized layout whatever the choice.
 """
 
 from __future__ import annotations
@@ -26,10 +31,21 @@ import torch
 from minipath_tpu_torch.geometry.aabb import AABB
 from minipath_tpu_torch.scene.bvh.build import BuildResult, BvhArrays, build_bvh
 from minipath_tpu_torch.scene.obj_loader import MeshData, load_obj
+from minipath_tpu_torch.utils.profiling import count, span
 
 # Bytes the f32 layout may take before the quantized one replaces it. None
 # means half the card's device memory, and no limit on the CPU.
 SCENE_BUDGET_BYTES: int | None = None
+
+# The layouts a caller may ask for (TriangleBvh.layout): the f32 one unless
+# it exceeds the budget, or the 16-bit quantized one.
+LAYOUTS = ("auto", "q16")
+
+
+def _checked_layout(layout: str) -> str:
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout {layout!r}: expected one of {LAYOUTS}")
+    return layout
 
 
 def scene_budget_bytes(device) -> int | None:
@@ -46,8 +62,10 @@ def scene_budget_bytes(device) -> int | None:
 class TriangleBvh:
     """Host handle owning the flat BVH arrays of a triangle mesh."""
 
-    def __init__(self, build_result: BuildResult):
+    def __init__(self, build_result: BuildResult, layout: str = "auto"):
         self._build = build_result
+        # The layout kernel_scene and pt_scene take, one of LAYOUTS.
+        self.layout = _checked_layout(layout)
         self._device_arrays: dict[torch.device, BvhArrays] = {}
         self._kernel_scenes: dict = {}
         self._pt_scenes: dict = {}
@@ -56,7 +74,9 @@ class TriangleBvh:
     # -- constructors -----------------------------------------------------------
 
     @classmethod
-    def with_obj(cls, path, use_native: bool | None = None, leaf_max: int | None = None) -> "TriangleBvh":
+    def with_obj(
+        cls, path, use_native: bool | None = None, leaf_max: int | None = None, layout: str = "auto"
+    ) -> "TriangleBvh":
         """Load an OBJ file and build the BVH (``building.rs:28``).
 
         Loads and builds with the native C++ code (``scene/bvh/native.py``)
@@ -67,20 +87,27 @@ class TriangleBvh:
         if use_native is None:
             use_native = native.is_available()
         mesh = native.load_obj_native(path) if use_native else load_obj(path)
-        return cls.build(mesh, use_native=use_native, leaf_max=leaf_max)
+        return cls.build(mesh, use_native=use_native, leaf_max=leaf_max, layout=layout)
 
     @classmethod
     def build(
-        cls, mesh: MeshData, materials=None, use_native: bool | None = None, leaf_max: int | None = None
+        cls,
+        mesh: MeshData,
+        materials=None,
+        use_native: bool | None = None,
+        leaf_max: int | None = None,
+        layout: str = "auto",
     ) -> "TriangleBvh":
         """Build the BVH of ``mesh``: with the Python builder (the reference)
-        unless ``use_native=True`` asks for the C++ one."""
+        unless ``use_native=True`` asks for the C++ one. ``layout`` is one of
+        :data:`LAYOUTS`, checked before the build."""
         from minipath_tpu_torch.scene.bvh import native
 
+        _checked_layout(layout)
         kw = {} if leaf_max is None else {"leaf_max": leaf_max}
         if use_native:
-            return cls(native.build_bvh_native(mesh, materials=materials, **kw))
-        return cls(build_bvh(mesh, materials=materials, **kw))
+            return cls(native.build_bvh_native(mesh, materials=materials, **kw), layout)
+        return cls(build_bvh(mesh, materials=materials, **kw), layout)
 
     # -- data access ------------------------------------------------------------
 
@@ -108,13 +135,16 @@ class TriangleBvh:
         return N * (32 + 8) * 4 + M * (64 * 4 + (8 * 20 * 2 if pt else 0))
 
     def _quantized(self, device: torch.device, pt: bool) -> bool:
+        if self.layout == "q16":
+            return True
         budget = scene_budget_bytes(device)
         return budget is not None and self.f32_scene_bytes(pt) > budget
 
     def kernel_scene(self, device):
         """Closest-hit layout on ``device`` (cached): the f32
         ``KernelScene`` (``render/kernels.py::prepare_scene``), or the
-        :meth:`quantized_scene` where the f32 one exceeds the budget."""
+        :meth:`quantized_scene` where ``layout`` asks for it (``"q16"``, or
+        ``"auto"`` with the f32 one over the budget)."""
         from minipath_tpu_torch.render.kernels import prepare_scene
 
         device = torch.device(device)
@@ -127,8 +157,9 @@ class TriangleBvh:
     def pt_scene(self, device):
         """Lean path-tracing layout on ``device`` (cached): the f32
         ``PTScene`` (``render/kernels.py::prepare_scene_pt``), or the
-        :meth:`quantized_pt_scene` where the f32 one exceeds the budget.
-        Material ids are checked before either is built."""
+        :meth:`quantized_pt_scene` where ``layout`` asks for it, as in
+        :meth:`kernel_scene`. Material ids are checked before either is
+        built."""
         from minipath_tpu_torch.render.kernels import check_material_ids, prepare_scene_pt
 
         device = torch.device(device)
@@ -143,12 +174,18 @@ class TriangleBvh:
         """The 16-bit quantized layout for K3 on ``device`` (cached; see
         ``render/kernels_q.py::prepare_scene_quantized``). A scene built with
         spatial splits, or with material ids above 65535, raises
-        ``ValueError``."""
+        ``ValueError``. While tracing is on (``utils/profiling.py``), the
+        build and upload is the span ``scene.quantize`` and its bytes the
+        counter ``scene.q16_bytes``."""
         from minipath_tpu_torch.render.kernels_q import prepare_scene_quantized
 
         device = torch.device(device)
         if device not in self._quantized_scenes:
-            self._quantized_scenes[device] = prepare_scene_quantized(self.host_arrays, device)
+            with span("scene.quantize"):
+                scene = prepare_scene_quantized(self.host_arrays, device)
+            words = (scene.node_q, scene.tri_q, scene.node_frame, scene.root_box)
+            count("scene.q16_bytes", sum(t.nbytes for t in words))
+            self._quantized_scenes[device] = scene
         return self._quantized_scenes[device]
 
     def quantized_pt_scene(self, device):

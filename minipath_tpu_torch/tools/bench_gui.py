@@ -131,7 +131,7 @@ def main(argv=None) -> int:
     from minipath_tpu_torch.cli import load_scene
     from minipath_tpu_torch.utils.calibrate import device_health
 
-    bvh, _ = load_scene(argparse.Namespace(scene=args.scene, obj=None, integrator="parity"))
+    bvh, _ = load_scene(argparse.Namespace(scene=args.scene, obj=None, integrator="parity", layout="auto"))
     controller = GuiController(Scene(bvh), scene_camera(args.scene), (W, H), tile_size=64, device=args.device)
     out = {"workload": f"{args.scene} {W}x{H}, preview 1 spp (gui.rs:216-224), 64-px tiles", **measure(controller)}
     out["device_health"] = device_health(args.device)

@@ -43,7 +43,7 @@ def small_atrium(monkeypatch):
 
 @pytest.mark.parametrize("integrator", ["normal", "pt"])
 def test_cli_atrium_is_the_native_build(small_atrium, integrator):
-    args = argparse.Namespace(scene="atrium", obj=None, integrator=integrator)
+    args = argparse.Namespace(scene="atrium", obj=None, integrator=integrator, layout="auto")
     bvh, dicts = cli.load_scene(args)
     ids = procedural.atrium_materials(small_atrium)[0] if integrator == "pt" else None
     assert (dicts is None) == (integrator == "normal")

@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (``minipath_tpu_torch``) on one NVIDIA GPU.
 
-Run from the root of a checkout: ``python3 chip_smoke.py``. Twenty-nine phases,
+Run from the root of a checkout: ``python3 chip_smoke.py``. Thirty-one phases,
 each printing its lines as it finishes; any failure raises and the script
 exits non-zero. There is no CPU path: without a CUDA device it fails at once.
 
 1. Device: the card's name and power limit.
-2. Build: compiles the four CUDA sources (``csrc/traverse.cu``: K1, K2;
+2. Build: compiles the five CUDA sources (``csrc/traverse.cu``: K1, K2;
    ``csrc/traverse_q.cu``: K3; ``csrc/chain.cu``: K4, K5; ``csrc/shade.cu``:
-   the bounce shading) with nvcc, all at once, and prints what ptxas says of
+   the bounce shading; ``csrc/camera.cu``: the camera rays) with nvcc, all at once, and prints what ptxas says of
    each kernel (registers, stack frame, spills, the blocks an SM holds) and
    the chain kernels' multiplies and min/max in the SASS. Fails where a
    traversal kernel's frame exceeds its stack of 128 entries of 8 bytes, or
@@ -251,10 +251,23 @@ Phase 29 runs after phase 7:
     version's, and its bound by the bytes each lane class must move; then
     the same for a frame of eight such chunks.
 
-``python3 chip_smoke.py --kernels-only`` runs phases 1, 2, 3, 6, 29 and 10
-alone: the traversal and shading kernels against their plain versions, with
-their times, bounds and requested bytes (about three minutes, most of it the
-three scene builds).
+Phase 31 runs after phase 3:
+
+31. The camera-ray kernel (``csrc/camera.cu``) against the plain chain
+    (``sample_rays`` and ``rays_to_rays9``) from one generator state: one
+    parity dispatch pass as ``render()`` makes it in tile mode (64 tiles x
+    32 spp, 8,388,608 lanes) and one pt-1080p64-nee1 chunk (8 spp of the
+    frame's 16 x 16 blocks, 16,711,680 lanes), every lane equal and the
+    generator left in the same state; ptxas' report, the kernel's time
+    alone and with its draws, the plain chain's, the peak memory of each and
+    the kernel's share of its byte bound (52 B a lane at 3.35 TB/s); then a
+    ``render()`` frame at 1920x1080 @ 64 spp in tile mode with a callback:
+    16 camera launches, ``camera.kernel_lanes`` 133,693,440.
+
+``python3 chip_smoke.py --kernels-only`` runs phases 1, 2, 3, 31, 6, 29 and
+10 alone: the traversal, camera and shading kernels against their plain
+versions, with their times, bounds and requested bytes (about three minutes,
+most of it the three scene builds).
 
 ``python3 chip_smoke.py --profile DIR`` also writes a ``torch.profiler``
 summary of one warm path-traced frame to DIR, over the f32 layout (after
@@ -412,14 +425,15 @@ def phase_device():
 
 
 def phase_build():
-    """The four sources at once, one nvcc each."""
+    """The five sources at once, one nvcc each."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from minipath_tpu_torch.render import kernels, kernels_q, shade
+    from minipath_tpu_torch.render import camera_rays, kernels, kernels_q, shade
     from minipath_tpu_torch.utils import calibrate
 
     t0 = time.perf_counter()
-    loaders = (kernels.load_library, kernels_q.load_library, calibrate.load_library, shade.load_library)
+    loaders = (kernels.load_library, kernels_q.load_library, calibrate.load_library, shade.load_library,
+               camera_rays.load_library)
     with ThreadPoolExecutor(len(loaders)) as pool:
         libs = [f.result() for f in [pool.submit(load) for load in loaders]]
     from minipath_tpu_torch.render.kernels import STACK_CAPACITY
@@ -444,7 +458,7 @@ def phase_build():
     log("2 build", f"shade.cu: {json.dumps(usage)}")
     if len(usage) != 1 or usage[0]["spill_stores"] or usage[0]["spill_loads"]:
         raise AssertionError(f"shade.cu: expected one kernel without spills, got {usage}")
-    log("2 build", f"all four built and loaded in {time.perf_counter() - t0:.2f}s")
+    log("2 build", f"all five built and loaded in {time.perf_counter() - t0:.2f}s")
     log("2 build", f"chain kernels' SASS: {json.dumps(chain_sass_counts(libs[2].path))}")
 
 
@@ -1144,6 +1158,131 @@ def phase_shade(parts, device, smi):
                         plain_ms=chunks * chunk["plain_ms"], bound_ms=chunks * chunk["bound_ms"], err=0.0,
                         bound_by="bytes", gb=chunks * chunk["nbytes"] / 1e9)
     return out
+
+
+# Phase 31: the camera-ray kernel against the plain chain on the parity cell's
+# dispatch pass (64 tiles x 4,096 px x 32 spp = 8,388,608 lanes) and on the
+# path tracer's chunk (8 spp of 1920 x 1088 = 16,711,680 lanes). A lane's
+# least bytes: its four uniforms read (16 B) and its nine rows written (36 B).
+CAMERA_LANE_BYTES = 16 + 36
+
+
+def phase_camera(bvh, device, smi):
+    """Phase 31: ``csrc/camera.cu`` against the plain chain (``sample_rays``
+    and ``rays_to_rays9``) on the card, from one generator state: every lane
+    of a parity dispatch pass and of a pt-1080p64-nee1 chunk equal, the
+    generator left in the same state. Prints ptxas' report, the kernel's
+    time alone, with its draws and origin table (what the main path pays),
+    the plain chain's, their peak memory, and the kernel's share of its
+    byte bound; then one ``render()`` frame in tile mode with a callback,
+    whose camera launches and ``camera.kernel_lanes`` are counted. Returns
+    the kernels line's results and that frame's launches."""
+    from minipath_tpu_torch import RenderSettings, Scene, render
+    from minipath_tpu_torch.render import camera_rays, frame, integrator
+    from minipath_tpu_torch.render.kernels import rays_to_rays9
+    from minipath_tpu_torch.render.machinery import PACKET_SHAPE, SAMPLES_PER_PASS
+    from minipath_tpu_torch.screen_block import ScreenBlock
+    from minipath_tpu_torch.utils import profiling
+    from minipath_tpu_torch.utils.roofline import PEAK_HBM_BYTES
+
+    usage = ptxas_usage(camera_rays.load_library().log)
+    log("31 camera", f"camera.cu: {json.dumps(usage)}")
+    if len(usage) != 1 or usage[0]["spill_stores"] or usage[0]["spill_loads"]:
+        raise AssertionError(f"camera.cu: expected one kernel without spills, got {usage}")
+
+    sampler = bench_camera().build_sampler((WIDTH, HEIGHT), device)
+    tiles = ScreenBlock.with_size((0, 0), (WIDTH, HEIGHT)).tile_ordering(TILE, rng=np.random.default_rng(0))
+    origins = torch.tensor(np.array([t.min for t in tiles[:64]], np.float32), device=device)
+    shape = dict(tile_shape=(TILE, TILE), packet_shape=PACKET_SHAPE, spp=SAMPLES_PER_PASS)
+    chunk = dict(width=PT_WIDTH, height=PT_HEIGHT, px_block=(16, 16), samples=SHADE_CHUNK, strat_spp=PT_SPP,
+                 strat_offset=SHADE_CHUNK, strat_seed=-1_234_567_891)
+
+    def plain_chunk(g):
+        real = frame.uses_camera_kernel
+        frame.uses_camera_kernel = lambda dev: False
+        try:
+            return frame.gen_frame_rays9(sampler, g, **chunk)[0]
+        finally:
+            frame.uses_camera_kernel = real
+
+    cases = {
+        "parity dispatch pass": (lambda g: integrator.tile_batch_rays9(sampler, origins, g, 12345, **shape),
+                                 lambda g: rays_to_rays9(integrator.tile_batch_rays(sampler, origins, g, 12345,
+                                                                                    **shape))),
+        "pt chunk": (lambda g: frame.gen_frame_rays9(sampler, g, **chunk)[0], plain_chunk),
+    }
+    out = {}
+    for name, (kernel, plain) in cases.items():
+        fields, launch = {}, frame.launch_camera
+
+        def recording(dev, **f):
+            fields.update(f)
+            return launch(dev, **f)
+
+        g_kernel, g_plain = (torch.Generator(device=device).manual_seed(31) for _ in range(2))
+
+        def peak_above_rays(make):
+            """``make()`` and its peak device memory beyond what it found
+            allocated and the rays it returns."""
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            rays = make()
+            torch.cuda.synchronize()
+            return rays, torch.cuda.max_memory_allocated(device) - base - rays.numel() * rays.element_size()
+
+        frame.launch_camera = recording
+        try:
+            got, kernel_peak = peak_above_rays(lambda: kernel(g_kernel))
+        finally:
+            frame.launch_camera = launch
+        want, plain_peak = peak_above_rays(lambda: plain(g_plain))
+        B, _, P = got.shape
+        differ = exact_differences(got.transpose(1, 2), want.transpose(1, 2)) if got.shape == want.shape else B * P
+        generator_differs = not torch.equal(g_kernel.get_state(), g_plain.get_state())
+        ms = cuda_ms(lambda: launch(device, **fields), 10)
+        paid_ms = cuda_ms(lambda: kernel(g_kernel), 10)
+        plain_ms = cuda_ms(lambda: plain(g_plain), 2)
+        nbytes = B * P * CAMERA_LANE_BYTES
+        bound_ms = nbytes / PEAK_HBM_BYTES * 1e3
+        text = (f"{name} {tuple(got.shape)} = {B * P} lanes: lanes that differ {differ}, generator differs "
+                f"{generator_differs} | kernel {ms:.4f} ms, with its draws and origin table {paid_ms:.4f} ms, plain "
+                f"{plain_ms:.3f} ms | peak memory above the rays kernel {kernel_peak / 1e6:.1f} MB, plain "
+                f"{plain_peak / 1e6:.1f} MB | bound {bound_ms:.4f} ms by bytes ({nbytes / 1e9:.4f} GB at "
+                f"{CAMERA_LANE_BYTES} B a lane): the kernel at {100 * bound_ms / ms:.1f}%")
+        if differ or generator_differs:
+            raise AssertionError(f"the camera kernel disagrees with the plain chain on {smi}: {text}")
+        log("31 camera", text)
+        out[name] = dict(ms=ms, paid_ms=paid_ms, plain_ms=plain_ms, err=0.0, bound_ms=bound_ms, bound_by="bytes",
+                         kernel_peak_mb=kernel_peak / 1e6, plain_peak_mb=plain_peak / 1e6)
+        del got, want, fields
+
+    tiles_back = []
+
+    def render_frame():
+        tiles_back.clear()
+        p = render(Scene(bvh), bench_camera(), RenderSettings(TILE, SPP, (WIDTH, HEIGHT)), device=device, seed=1,
+                   finished_tile_callback=lambda t, snap: tiles_back.append(t))
+        p.wait()
+        return p
+
+    render_frame()
+    before = camera_rays.launch.launches
+    profiling.take()
+    profiling.enable()
+    try:
+        p = render_frame()
+        lanes = profiling.take().counters.get("camera.kernel_lanes")
+    finally:
+        profiling.disable()
+    launches = camera_rays.launch.launches - before
+    n_tiles = -(-WIDTH // TILE) * -(-HEIGHT // TILE)
+    if launches != 2 * -(-n_tiles // 64) or lanes != n_tiles * TILE * TILE * SPP or len(tiles_back) != n_tiles:
+        raise AssertionError(f"render() in tile mode: {launches} camera launches, camera.kernel_lanes {lanes}, "
+                             f"{len(tiles_back)} tiles called back")
+    log("31 camera", f"render() {WIDTH}x{HEIGHT} @ {SPP} spp, tile mode, {n_tiles} tiles: {launches} camera launches, "
+        f"camera.kernel_lanes {lanes}, traced frame {p.elapsed():.3f} s | {smi}")
+    return out, launches
 
 
 def phase_card_vs_cpu(bvh, dicts, device, quantized=False, phase="8 card vs cpu"):
@@ -3140,8 +3279,9 @@ def main() -> int:
     parser.add_argument("--profile", type=Path, default=None, metavar="DIR",
                         help="also profile one warm path-traced frame on each layout and write the summaries to DIR")
     parser.add_argument("--kernels-only", action="store_true",
-                        help="run phases 1, 2, 3, 6, 29 and 10 alone (the traversal and shading kernels against their "
-                             "plain versions, with their times); prints neither the kernels line nor the last line")
+                        help="run phases 1, 2, 3, 31, 6, 29 and 10 alone (the traversal, camera and shading kernels "
+                             "against their plain versions, with their times); prints neither the kernels line nor "
+                             "the last line")
     args = parser.parse_args()
     smi = phase_device()
     phase_build()
@@ -3165,6 +3305,7 @@ def main() -> int:
           f"max depth {stats['max_depth']}, stack {bvh.recommended_stack_size}, "
           f"built in {time.perf_counter() - t0:.1f}s", flush=True)
     kernel = phase_kernel(bvh, device)
+    camera, camera_launches = phase_camera(bvh, device, smi)
     if args.kernels_only:
         del bvh
         pt_bvh, dicts = build_pt_atrium()
@@ -3172,7 +3313,7 @@ def main() -> int:
         _, sets = phase_k2(pt_bvh, parts, device)
         phase_shade(parts, device, smi)
         phase_k3(build_big_atrium(device), pt_bvh, parts[0], sets, device)
-        print("kernels only: phases 1, 2, 3, 6, 29 and 10 passed", flush=True)
+        print("kernels only: phases 1, 2, 3, 31, 6, 29 and 10 passed", flush=True)
         return 0
     # The CLI's tree (and phase 15's), and the bench's.
     cli_tree = native_tree()
@@ -3235,7 +3376,7 @@ def main() -> int:
             "max_abs_err": max(x["err"] for x in results.values()), "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             # No PyTorch call traverses a BVH, no single call computes a
-            # dependent chain, and none shades a bounce.
+            # dependent chain, and none shades a bounce or makes camera rays.
             "library_ms": None,
             **extra,
         }
@@ -3263,6 +3404,9 @@ def main() -> int:
         # Port only: the JAX package leaves a bounce's shading to XLA.
         entry("bounce_shade", "minipath_tpu_torch/csrc/shade.cu", None, shade_launches, shaded, "bounce 0",
               frame=shaded["frame"], by_bounce={k: v for k, v in shaded.items() if k != "frame"}),
+        # Port only: the JAX package leaves ray generation to XLA.
+        entry("camera_rays", "minipath_tpu_torch/csrc/camera.cu", None, camera_launches, camera,
+              "parity dispatch pass"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -37,12 +37,13 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "strata.cuh"
+
 #define MP_SHADE_BLOCK 256
 
 namespace {
 
 enum { LAMBERTIAN = 0, METAL = 1, DIELECTRIC = 2, EMISSIVE = 3 };
-enum { STRAT_NONE = 0, STRAT_JITTER = 1, STRAT_SOBOL = 2 };
 
 // float32 constants as PyTorch forms them from the plain path's Python
 // doubles: 2 * pi, 1 / float(2 * pi) and 1 / float(pi).
@@ -51,7 +52,6 @@ constexpr float INV_2PI = 0x1.45f306p-3f;
 constexpr float INV_PI = 0x1.45f306p-2f;
 constexpr float EPS = 1e-3f;  // wavefront.py::_EPS
 constexpr float GLOSSY_MIN_FUZZ = 1e-3f;
-constexpr unsigned GOLDEN = 0x9E3779B9u;
 
 struct ShadeArgs {
   int64_t n;
@@ -208,39 +208,7 @@ __device__ __forceinline__ float phong_pdf(float n_exp, float cos_alpha) {
   return c > 0.0f ? ((n_exp + 1.0f) * INV_2PI) * powed : 0.0f;
 }
 
-// ---- stratify.py on uint32 lanes ------------------------------------------
-
-__device__ __forceinline__ unsigned hash_u32(unsigned x) {
-  x = (x ^ 61u) ^ (x >> 16);
-  x = x * 9u;
-  x = x ^ (x >> 4);
-  x = x * 0x27D4EB2Du;
-  x = x ^ (x >> 15);
-  return x;
-}
-
-__device__ __forceinline__ unsigned hash_shift(int pid, int spp, unsigned salt) {
-  return hash_u32((unsigned)pid ^ (salt * GOLDEN)) % (unsigned)spp;
-}
-
-__device__ __forceinline__ unsigned laine_karras(unsigned x, unsigned seed) {
-  x = x + seed;
-  x = x ^ (x * 0x6C50B47Cu);
-  x = x ^ (x * 0xB82F1E52u);
-  x = x ^ (x * 0xC7AFE638u);
-  x = x ^ (x * 0x8D22F6E6u);
-  return x;
-}
-
-__device__ __forceinline__ unsigned owen(unsigned x, unsigned seed) {
-  return __brev(laine_karras(__brev(x), seed));
-}
-
-__device__ __forceinline__ unsigned dim_seed(int pid, unsigned salt, unsigned which) {
-  return hash_u32((unsigned)pid ^ ((salt * 2u + which) * GOLDEN));
-}
-
-__device__ __forceinline__ float to_unit(unsigned x) { return (float)(x >> 8) * 0x1p-24f; }
+// ---- the strata (csrc/strata.cuh) -----------------------------------------
 
 struct Strata {
   int s;    // the lane's sample index
@@ -248,30 +216,11 @@ struct Strata {
 };
 
 __device__ __forceinline__ float strat1d(const ShadeArgs& a, Strata st, float u, unsigned salt) {
-  if (a.strat_mode == STRAT_SOBOL) return to_unit(owen(__brev((unsigned)st.s), dim_seed(st.pid, salt, 0)));
-  const unsigned j = (unsigned)(((int64_t)st.s + hash_shift(st.pid, a.spp, salt)) % a.spp);
-  return ((float)j + u) * a.inv_spp;
+  return stratify1d(a.strat_mode, a.spp, a.inv_spp, st.s, st.pid, u, salt);
 }
 
 __device__ __forceinline__ void strat2d(const ShadeArgs& a, Strata st, float& u1, float& u2, unsigned salt) {
-  if (a.strat_mode == STRAT_SOBOL) {
-    const unsigned i = (unsigned)st.s;
-    unsigned y = 0;
-#pragma unroll
-    for (int bit = 0; bit < 32; ++bit) {
-      // Direction numbers of the second Sobol dimension: v_0 = 2^31,
-      // v_j = v_{j-1} ^ (v_{j-1} >> 1).
-      unsigned v = 0x80000000u;
-      for (int k = 0; k < bit; ++k) v ^= v >> 1;
-      if ((i >> bit) & 1u) y ^= v;
-    }
-    u1 = to_unit(owen(__brev(i), dim_seed(st.pid, salt, 0)));
-    u2 = to_unit(owen(y, dim_seed(st.pid, salt, 1)));
-    return;
-  }
-  const unsigned j = (unsigned)(((int64_t)st.s + hash_shift(st.pid, a.spp, salt)) % a.spp);
-  u1 = ((float)(j % (unsigned)a.gx) + u1) * a.inv_gx;
-  u2 = ((float)(j / (unsigned)a.gx) + u2) * a.inv_gy;
+  stratify2d(a.strat_mode, a.spp, a.gx, a.inv_gx, a.inv_gy, st.s, st.pid, u1, u2, salt);
 }
 
 // ---- the kernel ------------------------------------------------------------

@@ -19,9 +19,12 @@ import torch
 from minipath_tpu_torch.camera import CameraSampler, sample_rays
 from minipath_tpu_torch.geometry.ray import Rays
 from minipath_tpu_torch.parallel import replicate, shard_generators, shard_ranges
+from minipath_tpu_torch.render.camera_rays import launch as launch_camera
 from minipath_tpu_torch.render.kernels import KernelHits, KernelScene, rays_to_rays9
 from minipath_tpu_torch.render.kernels_q import QuantizedScene, trace_scene
-from minipath_tpu_torch.render.stratify import render_seed
+from minipath_tpu_torch.render.shade import STRAT_JITTER, STRAT_SOBOL
+from minipath_tpu_torch.render.stratify import grid_factor, render_seed
+from minipath_tpu_torch.utils.profiling import count, recording
 
 # Dimension-salt base for the camera's film/lens strata, clear of the
 # per-bounce salts a path tracer uses (8 per bounce).
@@ -30,6 +33,67 @@ CAMERA_SALT = 1 << 12
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+def uses_camera_kernel(device: torch.device) -> bool:
+    """Whether camera rays on ``device`` come from the camera-ray kernel
+    (:func:`packet_rays9`): on a card. Elsewhere the plain chain makes
+    them."""
+    return device.type == "cuda"
+
+
+def packet_rays9(
+    sampler: CameraSampler,
+    origin: torch.Tensor,
+    generator: torch.Generator | None,
+    *,
+    px_block,
+    samples: int,
+    strat_spp: int | None,
+    strat_offset: int,
+    strat_seed: int,
+    row_stride: int,
+    x_mask: int = -1,
+) -> torch.Tensor:
+    """The camera rays of pixel packets on a card, ``(B, 9, samples*bh*bw)``,
+    by one launch of the camera-ray kernel (``render/camera_rays.py``,
+    ``csrc/camera.cu``): the rays, bit for bit, that :func:`sample_rays`
+    and ``rays_to_rays9`` make of the same pixels and strata.
+
+    ``origin`` ``(B, 2)`` (integers on the sampler's device) is each
+    packet's first pixel, x and y; a packet is that ``px_block`` pixel block
+    repeated for each of ``samples`` samples, sample-major, its first sample
+    ``strat_offset``. ``strat_spp`` as in :func:`gen_rays9_blocks`; the
+    strata's pixel id is ``(y * row_stride + (x & x_mask)) ^ strat_seed``.
+    The film and lens uniforms are drawn here, by ``sample_rays``' two
+    ``torch.rand`` calls (their shapes, their order; none in Sobol mode), so
+    ``generator`` ends in the state the plain chain leaves it in."""
+    dev = sampler.device
+    bh, bw = px_block
+    B, bp = origin.shape[0], bh * bw
+    P = samples * bp
+    if origin.shape != (B, 2) or any(t.dtype != torch.float32 or not t.is_contiguous() for t in sampler):
+        raise ValueError("packet_rays9 takes a (B, 2) origin table and a float32 sampler")
+    sobol = strat_spp is not None and strat_spp < 0
+    u_film = u_lens = None
+    if not sobol:
+        u_film = torch.rand((B, P, 2), generator=generator, device=dev)
+        u_lens = torch.rand((B, P, 2), generator=generator, device=dev)
+    strat = {}
+    if strat_spp is not None:
+        spp = abs(strat_spp)
+        gx, gy = grid_factor(spp)
+        strat = dict(strat_mode=STRAT_SOBOL if sobol else STRAT_JITTER, spp=spp, gx=gx, inv_gx=1.0 / gx,
+                     inv_gy=1.0 / gy, strat_seed=int(strat_seed) & 0xFFFFFFFF, salt=CAMERA_SALT)
+    rays9 = torch.empty((B, 9, P), dtype=torch.float32, device=dev)
+    launch_camera(
+        dev, n=B * P, lanes=P, block_pixels=bp, block_width=bw, origin=origin.to(torch.int32).contiguous(),
+        s0=strat_offset, row_stride=row_stride, x_mask=x_mask & 0xFFFFFFFF, u_film=u_film, u_lens=u_lens,
+        **sampler._asdict(), rays9=rays9, **strat,
+    )
+    if recording():
+        count("camera.kernel_lanes", B * P)
+    return rays9
 
 
 def gen_rays9_blocks(
@@ -61,6 +125,9 @@ def gen_rays9_blocks(
     renders packets in allocation order this way. Pixel ids and strata
     follow the block, so a block's rays do not depend on where in the batch
     it sits.
+
+    On a card the rays come from :func:`packet_rays9`, one kernel launch,
+    with the blocks' first pixels as its origin table.
     """
     dev = sampler.device
     bh, bw = px_block
@@ -69,8 +136,13 @@ def gen_rays9_blocks(
         b_idx = block_ids.to(dev, torch.int64)[:, None]
     else:
         b_idx = block_start + torch.arange(block_count, device=dev)[:, None]
-    p_idx = torch.arange(bp, device=dev)[None, :]
     by, bx = b_idx // wc, b_idx % wc
+    if uses_camera_kernel(dev):
+        return packet_rays9(
+            sampler, torch.cat([bx * bw, by * bh], dim=1), generator, px_block=px_block, samples=samples,
+            strat_spp=strat_spp, strat_offset=strat_offset, strat_seed=strat_seed, row_stride=wc * bw,
+        )
+    p_idx = torch.arange(bp, device=dev)[None, :]
     py, px = p_idx // bw, p_idx % bw
     gx = (bx * bw + px).expand(block_count, bp)
     gy = (by * bh + py).expand(block_count, bp)

@@ -20,7 +20,7 @@ import torch
 from minipath_tpu_torch.camera import CameraSampler, sample_rays
 from minipath_tpu_torch.geometry.ray import Rays
 from minipath_tpu_torch.parallel import map_shards
-from minipath_tpu_torch.render.frame import CAMERA_SALT, shade_parity_sum
+from minipath_tpu_torch.render.frame import CAMERA_SALT, packet_rays9, shade_parity_sum, uses_camera_kernel
 from minipath_tpu_torch.render.hit import HitRecords
 from minipath_tpu_torch.render.kernels import KernelScene, rays_to_rays9
 from minipath_tpu_torch.render.kernels_q import QuantizedScene, trace_scene
@@ -103,10 +103,33 @@ def tile_batch_rays(
     return sample_rays(sampler, pix, generator, strat=strat)
 
 
-def tile_batch_rays9(sampler, tile_origins, generator, strat_seed, **shape) -> torch.Tensor:
+def tile_packet_origins(tile_origins: torch.Tensor, tile_shape, packet_shape, device) -> torch.Tensor:
+    """The first pixel (x, y) of each packet of :func:`tile_batch_rays`:
+    ``(K*nb, 2)`` int32 on ``device``, tile by tile, the packets of a tile
+    in :func:`tile_pixel_packets`' order. Made on ``device`` from the
+    integral ``tile_origins``, with no host copy."""
+    (th, tw), (ph, pw) = tile_shape, packet_shape
+    k = torch.arange((th // ph) * (tw // pw), dtype=torch.int32, device=device)
+    offsets = torch.stack([k % (tw // pw) * pw, k // (tw // pw) * ph], dim=-1)  # (nb, 2)
+    return (tile_origins.to(device, torch.int32)[:, None, :] + offsets).reshape(-1, 2)
+
+
+def tile_batch_rays9(sampler, tile_origins, generator, strat_seed, *, tile_shape, packet_shape, spp) -> torch.Tensor:
     """:func:`tile_batch_rays` packed for the kernels, ``(K*nb, 9,
-    spp*bp)``."""
-    return rays_to_rays9(tile_batch_rays(sampler, tile_origins, generator, strat_seed, **shape))
+    spp*bp)``. On a card, one launch of the camera-ray kernel
+    (:func:`~minipath_tpu_torch.render.frame.packet_rays9`) makes the same
+    rays from the packets' first pixels, with :func:`film_strat`'s pixel id
+    ``(y << 14) | (x & 0x3FFF)``."""
+    if uses_camera_kernel(sampler.device):
+        origins = tile_packet_origins(tile_origins, tile_shape, packet_shape, sampler.device)
+        return packet_rays9(
+            sampler, origins, generator, px_block=packet_shape, samples=spp, strat_spp=spp, strat_offset=0,
+            strat_seed=strat_seed, row_stride=1 << 14, x_mask=0x3FFF,
+        )
+    rays = tile_batch_rays(
+        sampler, tile_origins, generator, strat_seed, tile_shape=tile_shape, packet_shape=packet_shape, spp=spp
+    )
+    return rays_to_rays9(rays)
 
 
 def render_tile_batch_sphere(

@@ -112,13 +112,13 @@ Phases 17 and 18 drive multi-device rendering and adaptive sampling. They
 run after phase 12, while every scene is on the card; a mesh there is the
 one card four times (with more cards, also the real devices):
 
-17. Sharded: ``make_frame_renderer_sharded`` at 1920x1080 @ 64 spp in Sobol
+17. Sharded: ``render_frame(mesh=)`` at 1920x1080 @ 64 spp in Sobol
     mode against ``render_frame`` under the same seed, bit for bit over the
     atrium's f32 layout (K1) and, over the big atrium's ``QuantizedScene``
     (K3), by the share of solid pixels that agree (the JAX package's check);
     ``render()`` with ``mesh=`` in tile and in frame mode, ``array_equal``
     with ``render()``; the NEE-capped path-traced frame of phase 7 through
-    ``make_pt_renderer_sharded`` (K2) in chunks of 2 and of 8 samples, its
+    ``render_frame_pt(mesh=)`` (K2) in chunks of 2 and of 8 samples, its
     channel means within 0.5% of phase 7's and its values within 0.25 of
     phase 7's as often as a second unsharded frame's are, and a Sobol frame
     with no roulette sharded against ``render_frame_pt``, 99% of its pixels
@@ -2015,8 +2015,8 @@ def phase_sharded(bvh, big, parts, ref64, pt_warm, device, smi):
     ``render(mesh=)`` against ``render()`` in both modes, and the sharded
     path-traced frame against phase 7's. Returns the launches by path."""
     from minipath_tpu_torch import RenderSettings, Scene, render
-    from minipath_tpu_torch.render.frame import make_frame_renderer_sharded, render_frame
-    from minipath_tpu_torch.render.wavefront import make_pt_renderer_sharded, render_frame_pt
+    from minipath_tpu_torch.render.frame import render_frame
+    from minipath_tpu_torch.render.wavefront import render_frame_pt
 
     t_phase = time.perf_counter()
     sampler, _ = frame_inputs(device, WIDTH, HEIGHT)
@@ -2025,15 +2025,9 @@ def phase_sharded(bvh, big, parts, ref64, pt_warm, device, smi):
 
     def parity(label, scene, stack, mesh=None):
         """Cold and warm Sobol frames, unsharded or over ``mesh``."""
-        if mesh is None:
-            def run():
-                return render_frame(scene, sampler, None, width=WIDTH, height=HEIGHT, spp=SPP, stack_size=stack,
-                                    sobol=True, strat_seed=seed).cpu().numpy()
-        else:
-            r = make_frame_renderer_sharded(mesh, width=WIDTH, height=HEIGHT, stack_size=stack)
-
-            def run():
-                return r(scene, sampler, None, SPP, sobol=True, strat_seed=seed).cpu().numpy()
+        def run():
+            return render_frame(scene, sampler, None, width=WIDTH, height=HEIGHT, spp=SPP, stack_size=stack,
+                                sobol=True, strat_seed=seed, mesh=mesh).cpu().numpy()
         _, cold = timed(run)
         reset_launches()
         img, warm = timed(run)
@@ -2050,7 +2044,7 @@ def phase_sharded(bvh, big, parts, ref64, pt_warm, device, smi):
             a, b = single[..., 0][solid], img[..., 0][solid]
             agree = float((np.abs(a - b) <= SOLID_ATOL + SOLID_RTOL * np.abs(b)).mean())
             launches = by_path[f"sharded parity {layout} over {name}"]
-            text = (f"make_frame_renderer_sharded over {name}, {layout} layout ({tree.statistics()['triangles']} "
+            text = (f"render_frame(mesh=) over {name}, {layout} layout ({tree.statistics()['triangles']} "
                     f"triangles), {WIDTH}x{HEIGHT} @ {SPP} spp Sobol on {smi}: warm {t4:.3f} s (cold {cold:.3f} s) "
                     f"against render_frame {t1:.3f} s | launches {launches} | bit for bit {equal}, solid pixels "
                     f"{solid.mean():.4f} of the frame, agreeing {agree:.6f}")
@@ -2081,18 +2075,16 @@ def phase_sharded(bvh, big, parts, ref64, pt_warm, device, smi):
         pt_sampler, env = frame_inputs(device, PT_WIDTH, PT_HEIGHT)
         pt_kw = dict(width=PT_WIDTH, height=PT_HEIGHT, samples_per_packet=2, bounces=PT_BOUNCES, lights=lights,
                      shadow_tracer=shadow, nee_max_depth=1)
-        r = make_pt_renderer_sharded(mesh, tracer, **pt_kw)
+        def pt_frame(seed, samples_per_packet):
+            gen = torch.Generator(device=device).manual_seed(seed)
+            return render_frame_pt(tracer, scene, table, pt_sampler, gen, spp=PT_SPP, env=env, mesh=mesh,
+                                   **dict(pt_kw, samples_per_packet=samples_per_packet)).cpu().numpy()
+
         # The same frame in chunks of 2 samples a shard: each shard's torch
         # ops then cover as many lanes as an unsharded 2-sample chunk's.
-        wide = make_pt_renderer_sharded(mesh, tracer, **dict(pt_kw, samples_per_packet=2 * len(mesh)))
-
-        def pt_frame(renderer, seed):
-            gen = torch.Generator(device=device).manual_seed(seed)
-            return renderer(scene, table, pt_sampler, gen, PT_SPP, env=env).cpu().numpy()
-
-        img_wide, t_wide = timed(lambda: pt_frame(wide, 70))
+        img_wide, t_wide = timed(lambda: pt_frame(70, 2 * len(mesh)))
         reset_launches()
-        img, warm = timed(lambda: pt_frame(r, 71))
+        img, warm = timed(lambda: pt_frame(71, 2))
         launches = by_path[f"sharded pt over {name}"] = {k: v for k, v in kernel_launch_counts().items() if v}
         # A second unsharded frame: how close independent samples come to
         # phase 7's, pixel by pixel.
@@ -2102,7 +2094,7 @@ def phase_sharded(bvh, big, parts, ref64, pt_warm, device, smi):
         rel = np.maximum(np.abs(means - ref), np.abs(means_wide - ref)) / ref
         within = float((np.abs(img[..., :3] - ref64[..., :3]) < SHARD_PIXEL_ATOL).mean())
         within1 = float((np.abs(other[..., :3] - ref64[..., :3]) < SHARD_PIXEL_ATOL).mean())
-        text = (f"make_pt_renderer_sharded over {name}, {PT_WIDTH}x{PT_HEIGHT} @ {PT_SPP} spp, {PT_BOUNCES} bounces, "
+        text = (f"render_frame_pt(mesh=) over {name}, {PT_WIDTH}x{PT_HEIGHT} @ {PT_SPP} spp, {PT_BOUNCES} bounces, "
                 f"NEE at depth 1: warm {warm:.3f} s in chunks of 2 samples, {t_wide:.3f} s in chunks of "
                 f"{2 * len(mesh)}, against render_frame_pt {warm1:.3f} s (phase 7: {pt_warm:.3f} s) | launches "
                 f"{launches} | channel means {np.round(means, 5).tolist()} and {np.round(means_wide, 5).tolist()} "
@@ -2117,10 +2109,8 @@ def phase_sharded(bvh, big, parts, ref64, pt_warm, device, smi):
         # Seed-matched: Sobol strata, no roulette; the shards trace the
         # unsharded frame's paths.
         sobol_kw = dict(pt_kw, sobol=True, shadow_rr=False, rr_start=PT_BOUNCES)
-        a = make_pt_renderer_sharded(mesh, tracer, **sobol_kw)(scene, table, pt_sampler, None, SOBOL_SPP, env=env,
-                                                                strat_seed=seed)
-        b = render_frame_pt(tracer, scene, table, pt_sampler, None, spp=SOBOL_SPP, env=env, strat_seed=seed,
-                            **sobol_kw)
+        a, b = (render_frame_pt(tracer, scene, table, pt_sampler, None, spp=SOBOL_SPP, env=env, strat_seed=seed,
+                                mesh=m, **sobol_kw) for m in (mesh, None))
         close = float(((a - b).abs().amax(dim=-1) <= FRAME_PIXEL_ATOL).float().mean())
         rel = abs(a[..., :3].mean().item() - b[..., :3].mean().item()) / b[..., :3].mean().item()
         text = (f"Sobol {PT_WIDTH}x{PT_HEIGHT} @ {SOBOL_SPP} spp, no roulette, sharded over {name} against "

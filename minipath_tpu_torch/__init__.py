@@ -19,9 +19,9 @@ the post-process (``atrous_denoise`` with its guide buffers from
 ``render_aux``, the CLI's ``--denoise`` and ``--aov``), the analytic
 ``Sphere``, and the interactive viewer (``minipath_tpu_torch.gui``: the
 tile-streaming ``GuiController`` and the progressive path-traced viewport);
-multi-device rendering over a mesh of devices (``make_device_mesh``,
-``render(mesh=)``, ``make_frame_renderer_sharded``,
-``make_pt_renderer_sharded``; the CLI's ``--devices``) and adaptive
+multi-device rendering over a mesh of devices (``make_device_mesh``, and
+the ``mesh=`` argument of ``render`` and ``render_frame_pt``; the CLI's
+``--devices``) and adaptive
 sampling (``render_frame_pt_adaptive``, the CLI's ``--adaptive``).
 """
 
@@ -30,13 +30,11 @@ from minipath_tpu_torch.parallel import make_device_mesh
 from minipath_tpu_torch.render import RenderProgress, RenderSettings, render
 from minipath_tpu_torch.render.adaptive import render_frame_pt_adaptive
 from minipath_tpu_torch.render.denoise import atrous_denoise, render_aux
-from minipath_tpu_torch.render.frame import make_frame_renderer_sharded
 from minipath_tpu_torch.render.kernels_q import QPTScene, QuantizedScene, trace_scene
 from minipath_tpu_torch.render.wavefront import (
     make_full_tracer,
     make_portable_shadow_tracer,
     make_portable_tracer,
-    make_pt_renderer_sharded,
     make_pt_shadow_tracer,
     make_pt_tracer,
     render_frame_pt,
@@ -73,11 +71,9 @@ __all__ = [
     "emissive",
     "lambertian",
     "make_device_mesh",
-    "make_frame_renderer_sharded",
     "make_full_tracer",
     "make_portable_shadow_tracer",
     "make_portable_tracer",
-    "make_pt_renderer_sharded",
     "make_pt_shadow_tracer",
     "make_pt_tracer",
     "material_table",

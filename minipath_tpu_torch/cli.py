@@ -23,7 +23,7 @@ from 2 spp on) and written with their first-hit normal and depth buffers
 ``--devices N`` shards the render over a mesh of N devices of ``--device``'s
 type (``parallel.make_device_mesh``; 0 takes them all, and ``--device cpu``
 repeats the one CPU device): the parity path through ``render(mesh=)``, the
-path tracer through ``make_pt_renderer_sharded``. Asking for more devices
+path tracer through ``render_frame_pt(mesh=)``. Asking for more devices
 than there are exits 2. ``--adaptive`` path traces with
 ``render_frame_pt_adaptive`` (a 2-spp pilot allocates the budget toward
 noisy pixel blocks); it is single-device, uses jittered strata, and leaves
@@ -273,12 +273,7 @@ def _render_pt(args, bvh, camera, material_dicts, mesh=None) -> int:
     import torch
 
     from minipath_tpu_torch.render.adaptive import render_frame_pt_adaptive
-    from minipath_tpu_torch.render.wavefront import (
-        make_pt_renderer_sharded,
-        make_pt_shadow_tracer,
-        make_pt_tracer,
-        render_frame_pt,
-    )
+    from minipath_tpu_torch.render.wavefront import make_pt_shadow_tracer, make_pt_tracer, render_frame_pt
     from minipath_tpu_torch.scene.materials import Environment, build_light_table, lambertian, material_table
     from minipath_tpu_torch.utils.image import color_to_image, save_png
 
@@ -311,18 +306,9 @@ def _render_pt(args, bvh, camera, material_dicts, mesh=None) -> int:
         rr_start=args.rr_start,
     )
     t0 = time.perf_counter()
-    if mesh is not None:
-        if args.adaptive:
-            print("--adaptive is single-device only; rendering uniform spp across the mesh", file=sys.stderr)
-        if args.denoise:
-            print("--denoise on the sharded renderer uses the fixed-sigma filter (no variance buffer)",
-                  file=sys.stderr)
-        renderer = make_pt_renderer_sharded(
-            mesh, tracer, width=args.width, height=args.height, samples_per_packet=min(8, args.spp),
-            rr_floor=args.rr_floor, min_live_frac=args.tail_cut, stratify=not args.iid, sobol=args.sobol, **common,
-        )
-        img = renderer(scene, table, sampler, generator, args.spp, env=Environment.sky(device))
-    elif args.adaptive:
+    if args.adaptive and mesh is not None:
+        print("--adaptive is single-device only; rendering uniform spp across the mesh", file=sys.stderr)
+    if args.adaptive and mesh is None:
         if args.sobol:
             print("--sobol with --adaptive is not supported; rendering with jittered strata", file=sys.stderr)
         if args.denoise:
@@ -350,6 +336,7 @@ def _render_pt(args, bvh, camera, material_dicts, mesh=None) -> int:
             sobol=args.sobol,
             return_variance=args.denoise and args.spp >= 2,
             clamp=args.clamp,
+            mesh=mesh,
             **common,
         )
     var_img = None

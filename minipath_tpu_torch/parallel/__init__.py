@@ -1,28 +1,29 @@
-"""Multi-device rendering: the device mesh and what the sharded renderers share.
+"""Multi-device rendering: the device mesh and what the renderers share to shard.
 
 Port of ``minipath_tpu/parallel``. The JAX package shards a frame over a 1-D
 ``jax.sharding.Mesh`` with ``shard_map``; here a mesh is a tuple of
-``torch.device`` and a shard is the work the host issues on one of them. The
-sharded renderers give each device a contiguous range of pixel blocks,
-issue every shard's work before they read anything back, and gather the
-shards' results onto ``mesh[0]``. Scene arrays are replicated once per
-*distinct* device: a device that the mesh lists twice holds one copy, shared
-by its shards. A mesh may repeat a device; that is how the tests shard on
-the CPU (torch has one CPU device, where XLA can be told to show several)
-and how one card runs several shards.
+``torch.device`` and a shard is the work the host issues on one of them. A
+renderer takes the mesh as an argument (``mesh=``; None renders on one
+device, as one shard): each device takes a contiguous range of pixel
+blocks, every shard's work is issued before anything is read back, and the
+shards' results are gathered onto ``mesh[0]``. Scene arrays are replicated
+once per *distinct* device: a device that the mesh lists twice holds one
+copy, shared by its shards. A mesh may repeat a device; that is how the
+tests shard on the CPU (torch has one CPU device, where XLA can be told to
+show several) and how one card runs several shards.
 
-The frame-level functions (pixel packets, the portable-engine renderers)
-are in :mod:`minipath_tpu_torch.parallel.mesh`; the kernel renderers are
-``render/frame.py::make_frame_renderer_sharded`` and
-``render/wavefront.py::make_pt_renderer_sharded``, and ``render(mesh=)``
-shards the tile machinery.
+:func:`frame_shards` and :func:`gather` serve the whole-frame renderers
+(``render/frame.py::render_frame``, ``render/wavefront.py::render_frame_pt``),
+which make each shard's camera rays on its own device; :func:`map_shards`
+splits a batch made on ``mesh[0]`` (``render(mesh=)``'s tile integrator,
+``parallel/mesh.py``'s portable engine).
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["make_device_mesh", "map_shards", "replicate", "shard_generators", "shard_ranges"]
+__all__ = ["frame_shards", "gather", "make_device_mesh", "map_shards", "replicate", "shard_generators", "shard_ranges"]
 
 
 def make_device_mesh(n_devices: int | None = None, device="cuda") -> tuple[torch.device, ...]:
@@ -115,3 +116,29 @@ def map_shards(fn, batch, mesh, *replicas):
             local = batch[lo:hi].to(mesh[d])
         parts.append(fn(local, *(r[d] for r in replicas)))
     return torch.cat([p.to(mesh[0]) for p in parts])
+
+
+def frame_shards(mesh, n_blocks: int, generator: torch.Generator | None, *objs) -> list[tuple]:
+    """The shards of a frame of ``n_blocks`` pixel blocks, each ``(lo, hi,
+    generator, replicas)``: the blocks ``[lo, hi)``, the generator the shard
+    draws from and its copies of ``objs``. Without a mesh, one shard of
+    every block on the caller's ``generator`` and ``objs`` themselves: no
+    draw and no copy. Over ``mesh``: ``objs`` replicated once per distinct
+    device (:func:`replicate`), then one generator per shard seeded from
+    ``generator`` (:func:`shard_generators`, one draw), the blocks split by
+    :func:`shard_ranges`, empty shards left out."""
+    if mesh is None:
+        return [(0, n_blocks, generator, objs)]
+    copies = [replicate(obj, mesh) for obj in objs]
+    gens = shard_generators(generator, mesh)
+    return [
+        (lo, hi, gens[d], tuple(c[d] for c in copies))
+        for d, (lo, hi) in enumerate(shard_ranges(n_blocks, len(mesh)))
+        if lo < hi
+    ]
+
+
+def gather(parts: list, mesh) -> torch.Tensor:
+    """The shards' results concatenated in shard order on ``mesh[0]``;
+    without a mesh, the one shard's result itself (no copy)."""
+    return parts[0] if mesh is None else torch.cat([p.to(mesh[0]) for p in parts])

@@ -1,16 +1,16 @@
-"""Whole-frame rendering on the portable engine, single-device and sharded.
+"""Whole-frame rendering on the portable engine, on one device or over a mesh.
 
 Port of ``minipath_tpu/parallel/mesh.py``. The frame's pixels are grouped
 into coherent packets (``frame_pixel_packets``, or multi-sample packets,
 ``frame_pixel_packets_ms``) and traced by the portable engine
 (``render/traversal.py``), one sample of every packet per step, summed on
-the device. The sharded form splits the packets over a mesh
-(:mod:`minipath_tpu_torch.parallel`): the scene and sampler replicated once
-per distinct device, the packets in contiguous ranges, one generator per
-shard. The engine makes a host sync per traversal step: these functions are
-an oracle and a test of the mesh machinery, not a render path; the kernel
-renderers are ``render/frame.py::make_frame_renderer_sharded`` and
-``render/wavefront.py::make_pt_renderer_sharded``.
+the device. Over a mesh (:mod:`minipath_tpu_torch.parallel`) the packets are
+split: the scene and sampler replicated once per distinct device, the
+packets in contiguous ranges, one generator per shard. The engine makes a
+host sync per traversal step: these functions are an oracle and a test of
+the mesh machinery, not a render path; the kernel renderers take the same
+``mesh=`` argument (``render/frame.py::render_frame``,
+``render/wavefront.py::render_frame_pt``).
 
 ``gen_rays9_blocks`` and ``gen_frame_rays9`` of the JAX module live in
 ``render/frame.py``; ``unpack_frame`` is re-exported from there.
@@ -22,8 +22,7 @@ import torch
 
 from minipath_tpu_torch.camera import CameraSampler, sample_rays
 from minipath_tpu_torch.parallel import make_device_mesh, map_shards, replicate, shard_generators
-from minipath_tpu_torch.render.frame import unpack_frame
-from minipath_tpu_torch.render.integrator import shade_normal_dot
+from minipath_tpu_torch.render.frame import shade_parity_sum, unpack_frame
 from minipath_tpu_torch.render.traversal import finalize_hits, trace_packets
 from minipath_tpu_torch.scene.bvh.build import BvhArrays
 
@@ -34,7 +33,6 @@ __all__ = [
     "make_device_mesh",
     "make_sharded_renderer",
     "render_frame_sum",
-    "render_frame_sum_sharded",
     "render_packets_sum",
     "unpack_frame",
     "unpack_frame_ms",
@@ -94,16 +92,20 @@ def render_packets_sum(bvh: BvhArrays, sampler: CameraSampler, pixels, generator
     for _ in range(spp):
         rays = sample_rays(sampler, pixels, generator)
         hits = finalize_hits(bvh, rays, trace_packets(bvh, rays, stack_size=stack_size))
-        acc = acc + shade_normal_dot(rays, hits)
+        acc = acc + shade_parity_sum(rays.direction, hits.normal, hits.hit, 1)
     return acc
 
 
 def render_frame_sum(bvh: BvhArrays, sampler: CameraSampler, generator, *, width: int, height: int, spp: int,
-                     stack_size: int, packet_shape=PACKET_SHAPE) -> torch.Tensor:
-    """Whole-frame single-device render: the sum of ``spp`` RGBA samples
-    ``(H, W, 4)``."""
+                     stack_size: int, packet_shape=PACKET_SHAPE, mesh=None) -> torch.Tensor:
+    """Whole-frame render: the sum of ``spp`` RGBA samples ``(H, W, 4)``.
+    With a ``mesh``, :func:`make_sharded_renderer`'s split, the sum on
+    ``mesh[0]``; no packet is padded: the last shard takes fewer."""
     pixels, counts = frame_pixel_packets(width, height, packet_shape, device=sampler.device)
-    rgba = render_packets_sum(bvh, sampler, pixels, generator, spp=spp, stack_size=stack_size)
+    if mesh is None:
+        rgba = render_packets_sum(bvh, sampler, pixels, generator, spp=spp, stack_size=stack_size)
+    else:
+        rgba = make_sharded_renderer(mesh, spp=spp, stack_size=stack_size)(bvh, sampler, pixels, generator)
     return unpack_frame(rgba, width, height, counts, packet_shape)
 
 
@@ -124,12 +126,3 @@ def make_sharded_renderer(mesh, *, spp: int, stack_size: int):
                           shard_generators(generator, mesh))
 
     return render
-
-
-def render_frame_sum_sharded(bvh: BvhArrays, sampler: CameraSampler, generator, mesh, *, width: int, height: int,
-                             spp: int, stack_size: int, packet_shape=PACKET_SHAPE) -> torch.Tensor:
-    """Whole-frame render sharded over ``mesh``: the ``(H, W, 4)`` sample
-    sum on ``mesh[0]``. No packet is padded: the last shard takes fewer."""
-    pixels, counts = frame_pixel_packets(width, height, packet_shape, device=sampler.device)
-    rgba = make_sharded_renderer(mesh, spp=spp, stack_size=stack_size)(bvh, sampler, pixels, generator)
-    return unpack_frame(rgba, width, height, counts, packet_shape)

@@ -1,11 +1,13 @@
 """Whole-frame parity renderer on the traversal kernel.
 
-Port of ``minipath_tpu/render/frame.py`` (``render_frame_pallas``,
-``make_frame_renderer_sharded``, ``rays9_to_rays``) together with the ray
-generation they call in ``minipath_tpu/parallel/mesh.py``
-(``gen_rays9_blocks``, ``gen_frame_rays9``, ``unpack_frame``). One chunk of
-samples at a time: camera rays for every pixel block, one trace, parity
-shading (grayscale ``|d.n|``, alpha on hit), and a sum on the device.
+Port of ``minipath_tpu/render/frame.py`` (``render_frame_pallas`` and
+``make_frame_renderer_sharded``, one function here with a ``mesh=``
+argument, and ``rays9_to_rays``) together with the ray generation they call
+in ``minipath_tpu/parallel/mesh.py`` (``gen_rays9_blocks``,
+``gen_frame_rays9``, ``unpack_frame``). One chunk of samples at a time:
+camera rays for every pixel block, one trace, parity shading
+(:func:`shade_parity_sum`, the port's one parity shader: grayscale
+``|d.n|``, alpha on hit), and a sum on the device.
 
 Packets are multi-sample: a ``px_block`` pixel tile repeated for each sample
 of the chunk, sample-major. The kernel traces one ray per thread, so the
@@ -18,9 +20,9 @@ import torch
 
 from minipath_tpu_torch.camera import CameraSampler, sample_rays
 from minipath_tpu_torch.geometry.ray import Rays
-from minipath_tpu_torch.parallel import replicate, shard_generators, shard_ranges
+from minipath_tpu_torch.parallel import frame_shards, gather
 from minipath_tpu_torch.render.camera_rays import launch as launch_camera
-from minipath_tpu_torch.render.kernels import KernelHits, KernelScene, rays_to_rays9
+from minipath_tpu_torch.render.kernels import KernelScene, rays_to_rays9
 from minipath_tpu_torch.render.kernels_q import QuantizedScene, trace_scene
 from minipath_tpu_torch.render.shade import STRAT_JITTER, STRAT_SOBOL
 from minipath_tpu_torch.render.stratify import grid_factor, render_seed
@@ -208,14 +210,17 @@ def rays9_to_rays(rays9: torch.Tensor) -> Rays:
     return Rays(origin=r[..., 0:3], direction=r[..., 3:6], inv_direction=r[..., 6:9])
 
 
-def shade_parity_sum(rays9: torch.Tensor, kh: KernelHits, samples: int) -> torch.Tensor:
-    """Parity shading from kernel outputs (``worker.rs:59-64``: grayscale
-    ``|d.n|`` with alpha on hit, transparent miss). Returns ``(B, bp, 4)``
-    RGBA sums over the sample-major packet dimension."""
-    dot = torch.abs(torch.sum(rays9_to_rays(rays9).direction * kh.normal, dim=-1))
-    hit = (kh.tri >= 0).to(torch.float32)
-    shaded = dot * hit
-    rgba = torch.stack([shaded, shaded, shaded, hit], dim=-1)  # (B, P, 4)
+def shade_parity_sum(direction: torch.Tensor, normal: torch.Tensor, hit: torch.Tensor, samples: int) -> torch.Tensor:
+    """The parity shading (``worker.rs:59-64``): grayscale ``|d.n|`` with
+    alpha 1 on a hit, transparent black on a miss. ``direction`` and
+    ``normal`` ``(B, P, 3)``, ``hit`` ``(B, P)`` bool, the packets'
+    ``samples`` sample-major. Returns ``(B, P // samples, 4)`` RGBA sums
+    over the samples. A miss is masked, so its normal (whatever a trace
+    leaves there, even non-finite) never reaches the image."""
+    dot = torch.abs(torch.sum(direction * normal, dim=-1))
+    alpha = hit.to(torch.float32)
+    shaded = torch.where(hit, dot, 0.0)
+    rgba = torch.stack([shaded, shaded, shaded, alpha], dim=-1)  # (B, P, 4)
     B, P, _ = rgba.shape
     return rgba.reshape(B, samples, P // samples, 4).sum(dim=1)
 
@@ -234,9 +239,10 @@ def render_frame(
     stratify: bool = True,
     sobol: bool = False,
     strat_seed: int | None = None,
+    mesh=None,
 ) -> torch.Tensor:
     """Full-frame mean image ``(H, W, 4)`` float32 in [0, 1] on the
-    scene's device.
+    scene's device (``mesh[0]`` with a mesh).
 
     ``stratify`` draws the film jitter and lens sample from per-pixel
     jittered strata spanning the full ``spp``; ``sobol`` upgrades them to
@@ -247,6 +253,19 @@ def render_frame(
     (one host sync), so two frames from generators in different states pair
     their strata differently. ``generator`` may be None only in Sobol mode
     with a ``strat_seed`` given.
+
+    ``mesh``, a sequence of devices (``parallel.make_device_mesh``; it may
+    repeat one), shards the frame: its pixel blocks are split into
+    contiguous ranges, one per device (the scheduler role of
+    ``machinery.rs:31-62,205-210`` at device granularity), the scene and
+    sampler replicated once per distinct device. Each shard makes the camera
+    rays of its own range, traces them with ``trace_scene`` (K1, or K3 in
+    full mode over a :class:`QuantizedScene`) and shades them on its device;
+    the sums are gathered onto ``mesh[0]``. Each shard draws its film and
+    lens uniforms from a generator of its own, seeded from ``generator``
+    (:func:`parallel.shard_generators`); the pairing seed is drawn once and
+    shared. In Sobol mode nothing is drawn, so the sharded frame equals the
+    unsharded one bit for bit.
     """
     if scene.device != sampler.device:
         raise ValueError(f"scene on {scene.device}, sampler on {sampler.device}")
@@ -255,88 +274,22 @@ def render_frame(
     if strat_seed is None:
         strat_seed = render_seed(generator) if stratify else 0
     strat_spp = (-spp if sobol else spp) if stratify else None
+    bh, bw = px_block
+    hc, wc = _round_up(height, bh) // bh, _round_up(width, bw) // bw
+    # In Sobol mode no uniform is drawn: no shard takes a generator.
+    shards = frame_shards(mesh, hc * wc, None if stratify and sobol else generator, scene, sampler)
 
-    acc = None
+    acc = [None] * len(shards)
     done = 0
     while done < spp:
         n = min(samples_per_packet, spp - done)
-        rays9, (hc, wc) = gen_frame_rays9(
-            sampler,
-            generator,
-            width=width,
-            height=height,
-            px_block=px_block,
-            samples=n,
-            strat_spp=strat_spp,
-            strat_offset=done,
-            strat_seed=strat_seed,
-        )
-        kh = trace_scene(scene, rays9, stack_size=stack_size)
-        part = shade_parity_sum(rays9, kh, n)
-        acc = part if acc is None else acc + part
+        for i, (lo, hi, gen, (scene_d, sampler_d)) in enumerate(shards):
+            rays9 = gen_rays9_blocks(
+                sampler_d, gen, lo, block_count=hi - lo, wc=wc, px_block=px_block, samples=n,
+                strat_spp=strat_spp, strat_offset=done, strat_seed=strat_seed,
+            )
+            kh = trace_scene(scene_d, rays9, stack_size=stack_size)
+            part = shade_parity_sum(rays9_to_rays(rays9).direction, kh.normal, kh.tri >= 0, n)
+            acc[i] = part if acc[i] is None else acc[i] + part
         done += n
-    img = unpack_frame(acc, width, height, (hc, wc), px_block)
-    return img / spp
-
-
-def make_frame_renderer_sharded(
-    mesh,
-    *,
-    width: int,
-    height: int,
-    stack_size: int,
-    px_block=(16, 16),
-    samples_per_packet: int = 16,
-):
-    """The whole-frame parity renderer sharded over ``mesh``, a sequence of
-    devices (``parallel.make_device_mesh``; it may repeat one).
-
-    The frame's pixel blocks are split into contiguous ranges, one per
-    device (the scheduler role of ``machinery.rs:31-62,205-210`` at device
-    granularity). The scene and sampler are replicated once per distinct
-    device; each shard generates the camera rays of its own range, traces
-    them with ``trace_scene`` (K1, or K3 in full mode over a
-    :class:`QuantizedScene`) and shades them on its device; the shards'
-    sums are gathered onto ``mesh[0]`` at the end.
-
-    Returns ``render(scene, sampler, generator, spp, stratify=True,
-    sobol=False, strat_seed=None) -> (H, W, 4)`` mean image on ``mesh[0]``,
-    with :func:`render_frame`'s arguments. Each shard draws its film and
-    lens uniforms from a generator of its own, seeded from ``generator``
-    (:func:`parallel.shard_generators`); the pairing seed is drawn once per
-    render and shared by every shard. In Sobol mode no uniform is drawn, so
-    the sharded frame equals :func:`render_frame`'s for the same seed bit
-    for bit.
-    """
-    mesh = tuple(torch.device(d) for d in mesh)
-    bh, bw = px_block
-    hc, wc = -(-height // bh), -(-width // bw)
-    ranges = shard_ranges(hc * wc, len(mesh))
-
-    def render(scene, sampler, generator, spp: int, stratify: bool = True, sobol: bool = False,
-               strat_seed: int | None = None) -> torch.Tensor:
-        if generator is None and (strat_seed is None or not (stratify and sobol)):
-            raise ValueError("generator=None needs sobol=True and a strat_seed")
-        if strat_seed is None:
-            strat_seed = render_seed(generator) if stratify else 0
-        strat_spp = (-spp if sobol else spp) if stratify else None
-        scenes, samplers = replicate(scene, mesh), replicate(sampler, mesh)
-        gens = shard_generators(None if stratify and sobol else generator, mesh)
-        acc = [None] * len(mesh)
-        done = 0
-        while done < spp:
-            n = min(samples_per_packet, spp - done)
-            for d, (lo, hi) in enumerate(ranges):
-                if lo == hi:
-                    continue
-                rays9 = gen_rays9_blocks(
-                    samplers[d], gens[d], lo, block_count=hi - lo, wc=wc, px_block=px_block, samples=n,
-                    strat_spp=strat_spp, strat_offset=done, strat_seed=strat_seed,
-                )
-                part = shade_parity_sum(rays9, trace_scene(scenes[d], rays9, stack_size=stack_size), n)
-                acc[d] = part if acc[d] is None else acc[d] + part
-            done += n
-        sums = torch.cat([a.to(mesh[0]) for a in acc if a is not None])
-        return unpack_frame(sums, width, height, (hc, wc), px_block) / spp
-
-    return render
+    return unpack_frame(gather(acc, mesh), width, height, (hc, wc), px_block) / spp

@@ -9,8 +9,11 @@ black. Port of the batched-tile renderers
 kernel), and of the portable one, ``render_tile_sum_bvh`` with
 ``render_tile_batch_bvh_xla`` (:func:`render_tile_batch_bvh_portable`,
 over ``render/traversal.py``); they operate on whole batches of tiles, each
-cut into pixel packets. Each records its ray generation, trace and shading
-as the spans ``render.ray_gen``, ``render.trace`` and ``render.shade``.
+cut into pixel packets. The three share one body (the camera rays, the
+shading of ``render/frame.py::shade_parity_sum`` and the sum over the
+samples) and differ only in their trace; the body records its ray
+generation, trace and shading as the spans ``render.ray_gen``,
+``render.trace`` and ``render.shade``.
 """
 
 from __future__ import annotations
@@ -20,21 +23,12 @@ import torch
 from minipath_tpu_torch.camera import CameraSampler, sample_rays
 from minipath_tpu_torch.geometry.ray import Rays
 from minipath_tpu_torch.parallel import map_shards
-from minipath_tpu_torch.render.frame import CAMERA_SALT, packet_rays9, shade_parity_sum, uses_camera_kernel
-from minipath_tpu_torch.render.hit import HitRecords
+from minipath_tpu_torch.render.frame import CAMERA_SALT, packet_rays9, rays9_to_rays, shade_parity_sum, uses_camera_kernel
 from minipath_tpu_torch.render.kernels import KernelScene, rays_to_rays9
 from minipath_tpu_torch.render.kernels_q import QuantizedScene, trace_scene
 from minipath_tpu_torch.render.traversal import intersect_bvh
 from minipath_tpu_torch.scene.bvh.build import BvhArrays
 from minipath_tpu_torch.utils.profiling import span
-
-
-def shade_normal_dot(rays: Rays, hits: HitRecords) -> torch.Tensor:
-    """Grayscale ``|d . n|`` shading with alpha, transparent miss
-    (``worker.rs:59-64``). Returns RGBA ``(..., 4)``."""
-    dot = torch.abs(torch.sum(rays.direction * hits.normal, dim=-1))
-    rgba = torch.stack([dot, dot, dot, torch.ones_like(dot)], dim=-1)
-    return torch.where(hits.hit[..., None], rgba, torch.zeros_like(rgba))
 
 
 def tile_pixel_packets(tile_origin, tile_shape, packet_shape, device) -> torch.Tensor:
@@ -132,58 +126,13 @@ def tile_batch_rays9(sampler, tile_origins, generator, strat_seed, *, tile_shape
     return rays_to_rays9(rays)
 
 
-def render_tile_batch_sphere(
-    sphere,
-    sampler: CameraSampler,
-    tile_origins: torch.Tensor,  # (K, 2) f32 pixel origins
-    generator: torch.Generator,
-    strat_seed: int,
-    *,
-    tile_shape,
-    packet_shape,
-    spp: int,
-    mesh=None,
+def _render_tile_batch(
+    trace, scene, sampler, tile_origins, generator, strat_seed, *, tile_shape, packet_shape, spp, mesh
 ) -> torch.Tensor:
-    """Batched-tile renderer of the analytic sphere
-    (``scene/primitives.py``): the rays of :func:`render_tile_batch_bvh`,
-    intersected by ``sphere.intersect`` and shaded by
-    :func:`shade_normal_dot`. Returns ``(K, th, tw, 4)`` RGBA sums over
-    ``spp`` samples. ``mesh`` as in :func:`render_tile_batch_bvh`."""
-    K = tile_origins.shape[0]
-    with span("render.ray_gen"):
-        rays = tile_batch_rays(
-            sampler, tile_origins, generator, strat_seed,
-            tile_shape=tile_shape, packet_shape=packet_shape, spp=spp,
-        )
-    nb, bp = rays.origin.shape[0] // K, rays.origin.shape[1] // spp
-
-    def shade_sum(rays):
-        with span("render.trace"):
-            hits = sphere.intersect(rays)
-        with span("render.shade"):
-            rgba = shade_normal_dot(rays, hits)  # (packets, spp*bp, 4)
-            return rgba.reshape(-1, spp, bp, 4).sum(dim=1)
-
-    rgba_sum = shade_sum(rays) if mesh is None else map_shards(shade_sum, rays, mesh)
-    with span("render.shade"):
-        return unpack_tile(rgba_sum.reshape(K, nb, bp, 4), tile_shape, packet_shape)
-
-
-def render_tile_batch_bvh(
-    scene: KernelScene | QuantizedScene,
-    sampler: CameraSampler,
-    tile_origins: torch.Tensor,  # (K, 2) f32 pixel origins
-    generator: torch.Generator,
-    strat_seed: int,
-    *,
-    tile_shape,
-    packet_shape,
-    spp: int,
-    stack_size: int,
-    mesh=None,
-) -> torch.Tensor:
-    """Batched-tile renderer: K tiles in one trace. Returns ``(K, th, tw,
-    4)`` RGBA sums over ``spp`` samples, stratified per pixel over them.
+    """The tile integrators' one body: the rays of K tiles
+    (:func:`tile_batch_rays9`), ``trace(rays9, scene) -> (normal, hit)``
+    over them, :func:`~minipath_tpu_torch.render.frame.shade_parity_sum`
+    and the sum over the samples. Returns ``(K, th, tw, 4)`` RGBA sums.
 
     With a ``mesh`` (a sequence of devices), ``scene`` is a list of the
     scene's replicas parallel to it (``parallel.replicate``): the rays are
@@ -200,13 +149,69 @@ def render_tile_batch_bvh(
 
     def trace_shade(rays9, scene):
         with span("render.trace"):
-            hits = trace_scene(scene, rays9, stack_size=stack_size)
+            normal, hit = trace(rays9, scene)
         with span("render.shade"):
-            return shade_parity_sum(rays9, hits, spp)  # (packets, bp, 4)
+            return shade_parity_sum(rays9_to_rays(rays9).direction, normal, hit, spp)  # (packets, bp, 4)
 
     rgba_sum = trace_shade(rays9, scene) if mesh is None else map_shards(trace_shade, rays9, mesh, scene)
     with span("render.shade"):
         return unpack_tile(rgba_sum.reshape(K, nb, bp, 4), tile_shape, packet_shape)
+
+
+def render_tile_batch_sphere(
+    sphere,
+    sampler: CameraSampler,
+    tile_origins: torch.Tensor,  # (K, 2) f32 pixel origins
+    generator: torch.Generator,
+    strat_seed: int,
+    *,
+    tile_shape,
+    packet_shape,
+    spp: int,
+    mesh=None,
+) -> torch.Tensor:
+    """Batched-tile renderer of the analytic sphere
+    (``scene/primitives.py``): the rays of :func:`render_tile_batch_bvh`,
+    intersected by ``sphere.intersect``. Returns ``(K, th, tw, 4)`` RGBA
+    sums over ``spp`` samples. ``mesh`` as in :func:`render_tile_batch_bvh`."""
+
+    def trace(rays9, sphere):
+        hits = sphere.intersect(rays9_to_rays(rays9))
+        return hits.normal, hits.hit
+
+    return _render_tile_batch(
+        trace, sphere, sampler, tile_origins, generator, strat_seed,
+        tile_shape=tile_shape, packet_shape=packet_shape, spp=spp, mesh=mesh,
+    )
+
+
+def render_tile_batch_bvh(
+    scene: KernelScene | QuantizedScene,
+    sampler: CameraSampler,
+    tile_origins: torch.Tensor,  # (K, 2) f32 pixel origins
+    generator: torch.Generator,
+    strat_seed: int,
+    *,
+    tile_shape,
+    packet_shape,
+    spp: int,
+    stack_size: int,
+    mesh=None,
+) -> torch.Tensor:
+    """Batched-tile renderer: K tiles in one trace by ``trace_scene`` (K1,
+    or K3 over a :class:`QuantizedScene`). Returns ``(K, th, tw, 4)`` RGBA
+    sums over ``spp`` samples, stratified per pixel over them. With a
+    ``mesh``, ``scene`` is a list of the scene's replicas parallel to it
+    (:func:`_render_tile_batch`)."""
+
+    def trace(rays9, scene):
+        kh = trace_scene(scene, rays9, stack_size=stack_size)
+        return kh.normal, kh.tri >= 0
+
+    return _render_tile_batch(
+        trace, scene, sampler, tile_origins, generator, strat_seed,
+        tile_shape=tile_shape, packet_shape=packet_shape, spp=spp, mesh=mesh,
+    )
 
 
 def render_tile_batch_bvh_portable(
@@ -225,28 +230,18 @@ def render_tile_batch_bvh_portable(
     """:func:`render_tile_batch_bvh` over the portable engine: the same rays
     (the same generator draws and strata), traced by
     ``render/traversal.py::intersect_bvh`` over the f32 tree ``arrays`` in
-    packets of one sample of one pixel block, shaded by
-    :func:`shade_normal_dot`. It shares no traversal code with the kernels,
-    so it checks them; each traversal step makes one host sync. Returns the
-    ``(K, th, tw, 4)`` RGBA sums. With a ``mesh``, ``arrays`` is a list of
-    the tree's replicas parallel to it, and each device traces a contiguous
-    share of the packets: the image is the same bit for bit."""
-    K = tile_origins.shape[0]
-    with span("render.ray_gen"):
-        rays = tile_batch_rays(
-            sampler, tile_origins, generator, strat_seed,
-            tile_shape=tile_shape, packet_shape=packet_shape, spp=spp,
-        )
-    nb, bp = rays.origin.shape[0] // K, rays.origin.shape[1] // spp
+    packets of one sample of one pixel block. It shares no traversal code
+    with the kernels, so it checks them; each traversal step makes one host
+    sync. Returns the ``(K, th, tw, 4)`` RGBA sums. With a ``mesh``,
+    ``arrays`` is a list of the tree's replicas parallel to it."""
 
-    def trace_shade(rays, arrays):
-        packets = Rays(*(f.reshape(-1, bp, 3) for f in rays))  # (packets * spp, bp, 3), sample-major
-        with span("render.trace"):
-            hits = intersect_bvh(arrays, packets, stack_size=stack_size)
-        with span("render.shade"):
-            rgba = shade_normal_dot(packets, hits)
-            return rgba.reshape(-1, spp, bp, 4).sum(dim=1)
+    def trace(rays9, arrays):
+        B, _, P = rays9.shape
+        packets = Rays(*(f.reshape(-1, P // spp, 3) for f in rays9_to_rays(rays9)))  # (B * spp, bp, 3)
+        hits = intersect_bvh(arrays, packets, stack_size=stack_size)
+        return hits.normal.reshape(B, P, 3), hits.hit.reshape(B, P)
 
-    rgba_sum = trace_shade(rays, arrays) if mesh is None else map_shards(trace_shade, rays, mesh, arrays)
-    with span("render.shade"):
-        return unpack_tile(rgba_sum.reshape(K, nb, bp, 4), tile_shape, packet_shape)
+    return _render_tile_batch(
+        trace, arrays, sampler, tile_origins, generator, strat_seed,
+        tile_shape=tile_shape, packet_shape=packet_shape, spp=spp, mesh=mesh,
+    )

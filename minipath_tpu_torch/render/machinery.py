@@ -275,27 +275,21 @@ def render(
         passes = [min(max_pass, spp_total - s) for s in range(0, spp_total, max_pass)]
 
         sampler = camera.build_sampler(settings.resolution, device)
-        shape = dict(tile_shape=tile_shape, packet_shape=PACKET_SHAPE)
+        batch_kw = dict(tile_shape=tile_shape, packet_shape=PACKET_SHAPE)
         if isinstance(obj, TriangleBvh):
-            stack_size = obj.recommended_stack_size
+            batch_kw["stack_size"] = obj.recommended_stack_size
             if backend == "portable":
                 tree, batch_fn = obj.arrays(device), integrator.render_tile_batch_bvh_portable
             else:
                 tree, batch_fn = obj.kernel_scene(device), integrator.render_tile_batch_bvh
-            if mesh is not None:
-                tree = replicate(tree, mesh)
-
-            def tile_batch(origins, spp, strat_seed):
-                return batch_fn(
-                    tree, sampler, origins, generator, strat_seed, spp=spp, stack_size=stack_size, mesh=mesh, **shape
-                )
-
         else:
             # The analytic sphere: no scene layout and no kernel launch.
-            def tile_batch(origins, spp, strat_seed):
-                return integrator.render_tile_batch_sphere(
-                    obj, sampler, origins, generator, strat_seed, spp=spp, mesh=mesh, **shape
-                )
+            tree, batch_fn = obj, integrator.render_tile_batch_sphere
+        if mesh is not None:
+            tree = replicate(tree, mesh)
+
+        def tile_batch(origins, spp, strat_seed):
+            return batch_fn(tree, sampler, origins, generator, strat_seed, spp=spp, mesh=mesh, **batch_kw)
 
         generator = torch.Generator(device=device)
         generator.manual_seed(seed)

@@ -58,7 +58,7 @@ from minipath_tpu_torch.render.kernels import KernelHits, PTScene, trace_packets
 from minipath_tpu_torch.render.wavefront import _pack_rays9, shade_from_flat
 from minipath_tpu_torch.scene.bvh import links as L
 from minipath_tpu_torch.scene.bvh.build import BvhArrays
-from minipath_tpu_torch.utils.profiling import annotate
+from minipath_tpu_torch.utils.profiling import span
 
 # Treelets slab-tested at once in the broad phase: the running top-K merge
 # never holds more than an (N, CHUNK + K) buffer.
@@ -317,7 +317,7 @@ def make_pt_tracer_twolevel(
         else:
             live_mask = torch.arange(N, device=dev) < live
         table = links_table.to(dev)
-        with annotate("twolevel.broad_phase"):
+        with span("twolevel.broad_phase"):
             tid, entry_k, valid, overflow = broad_phase(treelets, origin, direction, inv_direction, live_mask, K)
 
         best_t = torch.full((N,), torch.inf, dtype=torch.float32, device=dev)
@@ -328,15 +328,15 @@ def make_pt_tracer_twolevel(
 
         def run_round(r_tid, need):
             nonlocal best_t, best_tri, best_u, best_v, counters
-            with annotate("twolevel.plan"):
+            with span("twolevel.plan"):
                 plan = _plan_round(r_tid, need, origin, direction, table, n_buckets=n_buckets,
                                    packet_size=packet_size)
                 r9, _, C = _pack_rays9(packet_size, None, *_gather_rays(plan, origin, direction, inv_direction))
-            with annotate("twolevel.trace"):
+            with span("twolevel.trace"):
                 ph = trace_packets_pt(
                     state, r9, stack_size=stack_size, live_packets=plan.live_packets, roots=plan.roots
                 )
-            with annotate("twolevel.merge"):
+            with span("twolevel.merge"):
                 tri_c = ph.tri.reshape(C)
                 t_c = torch.where(tri_c >= 0, ph.t.reshape(C), torch.full_like(ph.t.reshape(C), torch.inf))
                 rs = plan.ray_slot
@@ -362,7 +362,7 @@ def make_pt_tracer_twolevel(
         run_round(torch.full((N,), T, dtype=torch.int32, device=dev), leftover)
 
         # Shading gather, as make_pt_tracer's epilogue.
-        with annotate("twolevel.shade"):
+        with span("twolevel.shade"):
             normal, material, tex = shade_from_flat(state.shade_flat, best_tri, best_u, best_v)
         return KernelHits(
             t=torch.where(best_tri >= 0, best_t, torch.full_like(best_t, torch.inf)),

@@ -21,8 +21,9 @@ light dimension is a pure function of (pixel, sample, seed) and nothing is
 drawn from the generator for them; only shadow-ray and path roulette stay
 iid.
 
-:func:`make_pt_renderer_sharded` runs the whole bounce loop per device of a
-mesh, each shard on its own range of pixel blocks.
+:func:`render_frame_pt` with a ``mesh`` runs the whole bounce loop per
+device of the mesh, each shard on its own range of pixel blocks; without
+one, the frame is the one shard.
 
 The tracers come in three families with one contract: the lean kernels'
 (:func:`make_pt_tracer`, :func:`make_pt_shadow_tracer`), the full kernels'
@@ -41,8 +42,8 @@ import torch
 
 from minipath_tpu_torch.camera import CameraSampler
 from minipath_tpu_torch.geometry.ray import Rays
-from minipath_tpu_torch.parallel import replicate, shard_generators, shard_ranges
-from minipath_tpu_torch.render.frame import gen_frame_rays9, gen_rays9_blocks, rays9_to_rays, unpack_frame
+from minipath_tpu_torch.parallel import frame_shards, gather
+from minipath_tpu_torch.render.frame import gen_rays9_blocks, rays9_to_rays, unpack_frame
 from minipath_tpu_torch.render.kernels import KernelHits, KernelScene, PTHits, PTScene, _live_count, trace_packets_pt
 from minipath_tpu_torch.render.kernels_q import QPTScene, QuantizedScene, trace_packets_q, trace_scene
 from minipath_tpu_torch.render.shade import STRAT_JITTER, STRAT_SOBOL
@@ -62,7 +63,7 @@ from minipath_tpu_torch.scene.materials import (
     material_rows,
     sample_lights,
 )
-from minipath_tpu_torch.utils.profiling import annotate, count, new_request, recording
+from minipath_tpu_torch.utils.profiling import count, new_request, recording, span
 
 _EPS = 1e-3  # self-intersection offset along the facing normal
 _PI = np.pi
@@ -632,7 +633,7 @@ def _shade_plain(state: _PathState, kh: KernelHits, materials: MaterialTable, en
     nee = state.prev_pdf is not None
     dev = state.origin.device
     zero3 = torch.zeros_like(state.radiance)
-    with annotate("pt.environment_emission"):
+    with span("pt.environment_emission"):
         found = kh.tri >= 0
         hit = found & state.active
         missed = ~found & state.active
@@ -643,7 +644,7 @@ def _shade_plain(state: _PathState, kh: KernelHits, materials: MaterialTable, en
             missed[:, None], state.throughput * env.radiance(state.direction), zero3
         )
 
-    with annotate("pt.bsdf_scatter"):
+    with span("pt.bsdf_scatter"):
         # BSDF sampling at hits. With strata, each lane's sample index and
         # pixel id come from `state.pixel` (the slot in packet layout,
         # which compaction carries), with per-bounce, per-dimension salts.
@@ -658,7 +659,7 @@ def _shade_plain(state: _PathState, kh: KernelHits, materials: MaterialTable, en
         new_dir, atten, emitted, terminate, bsdf_pdf, diffuse = scatter_full(
             materials, generator, state.direction, kh.normal, kh.material, strat=strat_b
         )
-    with annotate("pt.hit_emission"):
+    with span("pt.hit_emission"):
         if nee:
             # MIS: weight the emitter hit by how likely BSDF sampling was
             # to find it, against NEE from the previous vertex.
@@ -675,7 +676,7 @@ def _shade_plain(state: _PathState, kh: KernelHits, materials: MaterialTable, en
 
     query = None
     if nee_here:
-        with annotate("pt.nee_light_sample"):
+        with span("pt.nee_light_sample"):
             # One light sample and one occlusion segment at every diffuse
             # and glossy vertex; mirror and glass lanes are delta lobes
             # NEE cannot cover, and keep full BSDF weight instead.
@@ -711,7 +712,7 @@ def _shade_plain(state: _PathState, kh: KernelHits, materials: MaterialTable, en
             contrib = state.throughput * fcos * em_l * (w_nee / pdf_nee * rr_w)[:, None]
             query = _ShadowQuery(cand, sh_o, seg, wi, light_i, contrib)
 
-    with annotate("pt.roulette_update"):
+    with span("pt.roulette_update"):
         # Dielectric transmission crosses the surface: offset along the
         # new direction's side of the surface instead of the facing
         # normal.
@@ -855,21 +856,6 @@ def _shade_kernel(state: _PathState, kh: KernelHits, materials: MaterialTable, e
     return out, query
 
 
-def _pt_chunk(tracer_state, materials, env, sampler, generator, *, width, height, px_block, samples,
-              strat_spp, strat_offset, strat_seed, **kw):
-    """Trace ``samples`` spp of camera paths; returns ``(B0, bp, 3)`` RGB
-    sums per packet pixel (plus the luminance sum of squares when
-    ``with_sumsq``)."""
-    rays9, _ = gen_frame_rays9(
-        sampler, generator, width=width, height=height, px_block=px_block, samples=samples,
-        strat_spp=strat_spp, strat_offset=strat_offset, strat_seed=strat_seed,
-    )
-    return _pt_trace(
-        tracer_state, materials, env, rays9, generator, samples=samples,
-        strat_spp=strat_spp, strat_offset=strat_offset, strat_seed=strat_seed, **kw,
-    )
-
-
 def _pt_trace(
     tracer_state,
     materials: MaterialTable,
@@ -947,7 +933,7 @@ def _pt_trace(
     for bounce in range(bounces):
         live = live_rays
         if compaction and bounce > 0:
-            with annotate("pt.compaction"):
+            with span("pt.compaction"):
                 state = _compact(state, fine_direction=bounce == 1)
                 # Dead rays are now a suffix; the kernel reads the live count
                 # from device memory and skips whole dead packets.
@@ -965,16 +951,16 @@ def _pt_trace(
                 count("pt.live_lanes", N if live_rays is None else live_rays)
             else:
                 count("pt.live_lanes", live if compaction else state.active.sum(dtype=torch.int32))
-        with annotate("pt.trace"):
+        with span("pt.trace"):
             kh = tracer(tracer_state, state.origin, state.direction, state.inv_direction, live)
         nee_here = nee and (nee_max_depth is None or bounce < nee_max_depth)
-        with annotate("pt.shade"):
+        with span("pt.shade"):
             state, query = shade(
                 state, kh, materials, env, lights, generator, bounce=bounce, nee_here=nee_here,
                 shadow_rr=shadow_rr, rr_start=rr_start, rr_floor=rr_floor, strata=strata, live=live,
             )
         if query is not None:
-            with annotate("pt.shadow_trace"):
+            with span("pt.shadow_trace"):
                 o_s, s_s, n_cand, order = _shadow_batch(
                     query.cand, query.origin, query.segment, query.wi, query.light, shadow_sort
                 )
@@ -982,7 +968,7 @@ def _pt_trace(
                 occ_s = shadow_tracer(tracer_state, o_s, s_s, n_cand)
                 occluded = torch.empty_like(occ_s)
                 occluded[order] = occ_s
-            with annotate("pt.shade"):
+            with span("pt.shade"):
                 # The light that reached the vertex, added last, as the
                 # estimator sums it.
                 lit = (query.cand & ~occluded)[:, None]
@@ -1033,9 +1019,10 @@ def render_frame_pt(
     strat_seed: int | None = None,
     return_variance: bool = False,
     clamp: float | None = None,
+    mesh=None,
 ):
     """Path-traced frame: mean RGB and alpha 1, ``(H, W, 4)`` float32 on the
-    sampler's device.
+    sampler's device (``mesh[0]`` with a mesh).
 
     ``(tracer, tracer_state)`` comes from :func:`make_pt_tracer` (the lean
     kernel), :func:`make_full_tracer` (the full one) or
@@ -1063,139 +1050,70 @@ def render_frame_pt(
     ``return_variance`` also returns the per-pixel variance of the mean
     (luminance, ``(H, W)``). ``clamp`` (opt-in, biased) caps each sample's
     radiance.
+
+    ``mesh``, a sequence of devices (``parallel.make_device_mesh``; it may
+    repeat one), shards the frame: each device owns a contiguous range of
+    the frame's pixel blocks, makes their camera rays and runs the whole
+    bounce loop on them, compaction included. Rays never move between
+    devices; the only traffic between them is the gather of the shards'
+    sums onto ``mesh[0]`` at the end. The tracer state, materials, lights,
+    sampler and environment are replicated once per distinct device, and
+    the tracers take the state of whichever device they are handed. Each
+    shard draws from a generator of its own, seeded from ``generator``
+    (:func:`parallel.shard_generators`) after the pairing seed. A pixel's
+    strata are the whole frame's, so in Sobol mode, where roulette draws
+    nothing, the sharded frame traces the unsharded frame's paths.
     """
     _check_shadow_sort(shadow_sort)
-    dev = sampler.device
     if env is None:
-        env = Environment.sky(dev)
+        env = Environment.sky(sampler.device)
     if (lights is None) != (shadow_tracer is None):
         raise ValueError("NEE needs both lights= and shadow_tracer=")
     if return_variance and spp < 2:
         raise ValueError("return_variance needs spp >= 2")
     if sobol and not stratify:
         raise ValueError("sobol=True requires stratify=True")
-    with annotate("pt.frame", request=new_request()):
+    bh, bw = px_block
+    hc, wc = -(-height // bh), -(-width // bw)
+    with span("pt.frame", request=new_request()):
         if strat_seed is None:
-            # One pairing seed per render, shared by every chunk of the window.
+            # One pairing seed per render, shared by every chunk and shard.
             strat_seed = render_seed(generator)
         strat_seed = (int(strat_seed) + 2**31) % 2**32 - 2**31  # as int32
         strat_spp = (-1 if sobol else 1) * (strat_total or spp) if stratify else None
-        bh, bw = px_block
-        hc, wc = -(-height // bh), -(-width // bw)
-        acc = acc_sq = None
+        shards = frame_shards(mesh, hc * wc, generator, tracer_state, materials, env, sampler, lights)
+        acc, acc_sq = [None] * len(shards), [None] * len(shards)
         done = 0
         while done < spp:
             n = min(samples_per_packet, spp - done)
-            with annotate("pt.chunk"):
-                part = _pt_chunk(
-                    tracer_state, materials, env, sampler, generator,
-                    width=width, height=height, px_block=px_block, samples=n,
-                    strat_spp=strat_spp, strat_offset=strat_offset + done, strat_seed=strat_seed,
-                    tracer=tracer, bounces=bounces, compaction=compaction, lights=lights,
-                    shadow_tracer=shadow_tracer, shadow_sort=shadow_sort, shadow_rr=shadow_rr,
-                    nee_max_depth=nee_max_depth, rr_start=rr_start, rr_floor=rr_floor,
-                    min_live_frac=min_live_frac, with_sumsq=return_variance, clamp=clamp,
-                )
-            if return_variance:
-                part, part_sq = part
-                acc_sq = part_sq if acc_sq is None else acc_sq + part_sq
-            acc = part if acc is None else acc + part
+            with span("pt.chunk"):
+                for i, (lo, hi, gen, (state_d, table_d, env_d, sampler_d, lights_d)) in enumerate(shards):
+                    rays9 = gen_rays9_blocks(
+                        sampler_d, gen, lo, block_count=hi - lo, wc=wc, px_block=px_block, samples=n,
+                        strat_spp=strat_spp, strat_offset=strat_offset + done, strat_seed=strat_seed,
+                    )
+                    part = _pt_trace(
+                        state_d, table_d, env_d, rays9, gen, tracer=tracer, samples=n, bounces=bounces,
+                        compaction=compaction, lights=lights_d, shadow_tracer=shadow_tracer,
+                        shadow_sort=shadow_sort, shadow_rr=shadow_rr, nee_max_depth=nee_max_depth,
+                        rr_start=rr_start, rr_floor=rr_floor, min_live_frac=min_live_frac, strat_spp=strat_spp,
+                        strat_offset=strat_offset + done, strat_seed=strat_seed, block_start=lo,
+                        with_sumsq=return_variance, clamp=clamp,
+                    )
+                    if return_variance:
+                        part, part_sq = part
+                        acc_sq[i] = part_sq if acc_sq[i] is None else acc_sq[i] + part_sq
+                    acc[i] = part if acc[i] is None else acc[i] + part
             done += n
+        acc = gather(acc, mesh)
         rgb = unpack_frame(acc, width, height, (hc, wc), px_block) / spp
         img = torch.cat([rgb, torch.ones_like(rgb[..., :1])], dim=-1)
         if return_variance:
             from minipath_tpu_torch.utils import LUMA_WEIGHTS
 
-            lum_sum = acc @ torch.from_numpy(LUMA_WEIGHTS).to(dev)
+            lum_sum = acc @ torch.from_numpy(LUMA_WEIGHTS).to(acc.device)
             # Sample variance of the per-sample luminance over spp, divided by
             # spp: the variance of the pixel's mean.
-            var = torch.clamp(acc_sq - lum_sum * lum_sum / spp, min=0.0) / ((spp - 1) * spp)
+            var = torch.clamp(gather(acc_sq, mesh) - lum_sum * lum_sum / spp, min=0.0) / ((spp - 1) * spp)
             return img, unpack_frame(var[..., None], width, height, (hc, wc), px_block)[..., 0]
         return img
-
-
-def make_pt_renderer_sharded(
-    mesh,
-    tracer,
-    *,
-    width: int,
-    height: int,
-    px_block=(16, 16),
-    samples_per_packet: int = 8,
-    bounces: int = 6,
-    compaction: bool = True,
-    lights: LightTable | None = None,
-    shadow_tracer=None,
-    shadow_rr: bool = True,
-    nee_max_depth: int | None = None,
-    rr_start: int = 3,
-    rr_floor: float = 0.05,
-    min_live_frac: float | None = None,
-    stratify: bool = True,
-    sobol: bool = False,
-):
-    """The wavefront path tracer sharded over ``mesh``, a sequence of devices
-    (``parallel.make_device_mesh``; it may repeat one).
-
-    Each device owns a contiguous range of the frame's pixel blocks,
-    generates its camera rays and runs the whole bounce loop on them,
-    compaction included: rays never move between devices, and the only
-    traffic between them is the gather of the shards' sums onto ``mesh[0]``
-    at the end. The tracer state, materials, lights, sampler and environment
-    are replicated once per distinct device. ``tracer`` and
-    ``shadow_tracer`` come from :func:`make_pt_tracer` and
-    :func:`make_pt_shadow_tracer` and take the state of whichever device
-    they are handed. The arguments are :func:`render_frame_pt`'s.
-
-    Returns ``render(tracer_state, materials, sampler, generator, spp,
-    env=None, strat_seed=None) -> (H, W, 4)`` mean image on ``mesh[0]``.
-    Each shard draws from a generator of its own, seeded from ``generator``
-    (:func:`parallel.shard_generators`); the pairing seed is drawn once per
-    render (when ``strat_seed`` is None) and shared. A pixel's strata are
-    the whole frame's, so in Sobol mode, where roulette draws nothing, the
-    sharded frame traces the unsharded frame's paths.
-    """
-    if (lights is None) != (shadow_tracer is None):
-        raise ValueError("NEE needs both lights= and shadow_tracer=")
-    if sobol and not stratify:
-        raise ValueError("sobol=True requires stratify=True")
-    mesh = tuple(torch.device(d) for d in mesh)
-    bh, bw = px_block
-    hc, wc = -(-height // bh), -(-width // bw)
-    ranges = shard_ranges(hc * wc, len(mesh))
-    shard_lights = replicate(lights, mesh)
-
-    def render(tracer_state, materials, sampler, generator, spp: int, env=None, strat_seed=None):
-        if env is None:
-            env = Environment.sky(mesh[0])
-        if strat_seed is None:
-            strat_seed = render_seed(generator)
-        strat_seed = (int(strat_seed) + 2**31) % 2**32 - 2**31  # as int32
-        strat_spp = (-spp if sobol else spp) if stratify else None
-        states, tables, samplers, envs = (replicate(x, mesh) for x in (tracer_state, materials, sampler, env))
-        gens = shard_generators(generator, mesh)
-        acc = [None] * len(mesh)
-        done = 0
-        while done < spp:
-            n = min(samples_per_packet, spp - done)
-            for d, (lo, hi) in enumerate(ranges):
-                if lo == hi:
-                    continue
-                rays9 = gen_rays9_blocks(
-                    samplers[d], gens[d], lo, block_count=hi - lo, wc=wc, px_block=px_block, samples=n,
-                    strat_spp=strat_spp, strat_offset=done, strat_seed=strat_seed,
-                )
-                part = _pt_trace(
-                    states[d], tables[d], envs[d], rays9, gens[d], tracer=tracer, samples=n, bounces=bounces,
-                    compaction=compaction, lights=shard_lights[d], shadow_tracer=shadow_tracer,
-                    shadow_rr=shadow_rr, nee_max_depth=nee_max_depth, rr_start=rr_start, rr_floor=rr_floor,
-                    min_live_frac=min_live_frac, strat_spp=strat_spp, strat_offset=done,
-                    strat_seed=strat_seed, block_start=lo,
-                )
-                acc[d] = part if acc[d] is None else acc[d] + part
-            done += n
-        sums = torch.cat([a.to(mesh[0]) for a in acc if a is not None])
-        rgb = unpack_frame(sums, width, height, (hc, wc), px_block) / spp
-        return torch.cat([rgb, torch.ones_like(rgb[..., :1])], dim=-1)
-
-    return render

@@ -10,8 +10,7 @@
   nothing. Under a profiler each span also enters ``record_function``, so
   the kernels launched inside it are attributed to its name in the trace.
   :func:`take` returns and clears what was recorded;
-  :func:`export_chrome_trace` writes it as a Chrome trace. :func:`annotate`
-  is :func:`span`.
+  :func:`export_chrome_trace` writes it as a Chrome trace.
 * :class:`PhaseTimers` accumulates the host time of named phases, each also
   a span; the render thread records ``dispatch`` and ``fetch``. It never
   synchronizes a device: the device time of a phase comes from a trace.
@@ -172,7 +171,6 @@ take = RECORDER.take
 recording = RECORDER.recording
 new_request = RECORDER.new_request
 current = RECORDER.current
-annotate = span
 
 
 def enable() -> None:

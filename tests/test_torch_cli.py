@@ -140,6 +140,24 @@ def test_cli_devices_on_the_cpu_writes_png(tmp_path, integrator):
     assert img.shape == (48, 64, 4) and (img[..., 3] > 0).any() and img[..., :3].std() > 0
 
 
+def test_cli_devices_keeps_clamp_and_the_variance_buffer(tmp_path, capsys):
+    """Under ``--devices`` the path tracer takes ``--clamp`` (the clamped
+    frame is another image than the same run's without it) and ``--denoise``
+    gets the variance buffer, as on one device."""
+    base = ["--scene", "sphere-mesh", "--integrator", "pt", "--width", "32", "--height", "24", "--spp", "2",
+            "--bounces", "3", "--devices", "2", "--device", "cpu", "--no-stats", "-q"]
+    images = []
+    for name, flags in (("plain", []), ("clamped", ["--clamp", "0.05"])):
+        assert cli.main([*base, "-o", str(tmp_path / f"{name}.png"), *flags]) == 0
+        images.append(_png(tmp_path / f"{name}.png"))
+    assert images[0].shape == images[1].shape == (24, 32, 4)
+    assert not np.array_equal(images[0], images[1])
+    capsys.readouterr()
+    assert cli.main([*base, "-o", str(tmp_path / "denoised.png"), "--denoise"]) == 0
+    said = capsys.readouterr().err
+    assert "denoised (variance-guided a-trous)" in said and "no variance buffer" not in said
+
+
 def test_cli_devices_beyond_the_cards_exits_2(monkeypatch, capsys):
     """More devices than there are: exit 2 with a message, never fewer
     devices. Without a card the device check exits first; with one card

@@ -23,7 +23,7 @@ from minipath_tpu_torch import Camera, RenderSettings, Scene, TriangleBvh, rende
 from minipath_tpu_torch.render import kernels
 from minipath_tpu_torch.render import wavefront as tw
 from minipath_tpu_torch.render.adaptive import render_frame_pt_adaptive
-from minipath_tpu_torch.render.frame import make_frame_renderer_sharded, render_frame
+from minipath_tpu_torch.render.frame import render_frame
 from minipath_tpu_torch.scene import materials as tm
 from minipath_tpu_torch.scene import procedural
 
@@ -53,7 +53,7 @@ def test_sharded_sobol_frame_equals_render_frame(cuda, bvh):
     kw = dict(width=w, height=h, stack_size=bvh.recommended_stack_size, samples_per_packet=4)
     single = render_frame(scene, sampler, None, spp=spp, sobol=True, strat_seed=2024, **kw)
     kernels.trace_packets.launches = 0
-    sharded = make_frame_renderer_sharded((cuda,) * 4, **kw)(scene, sampler, None, spp, sobol=True, strat_seed=2024)
+    sharded = render_frame(scene, sampler, None, spp=spp, sobol=True, strat_seed=2024, mesh=(cuda,) * 4, **kw)
     assert kernels.trace_packets.launches == 4 * 2  # four shards, two chunks
     assert torch.equal(sharded, single)
     assert 0.05 < single[..., 3].mean().item()

@@ -275,9 +275,9 @@ def test_sharded_sobol_frame_matches_unsharded(cuda, setup):
     sampler = _camera().build_sampler((64, 48), cuda)
     one = tw.render_frame_pt(s["tracer"], s["scene"], s["table"], sampler, None, spp=8, strat_seed=7, **kw,
                              shadow_tracer=s["shadow"])
-    render = tw.make_pt_renderer_sharded((cuda,) * 2, s["tracer"], shadow_tracer=s["shadow"], **kw)
     before = shade.launch.launches
-    two = render(s["scene"], s["table"], sampler, None, 8, strat_seed=7)
+    two = tw.render_frame_pt(s["tracer"], s["scene"], s["table"], sampler, None, spp=8, strat_seed=7, **kw,
+                             shadow_tracer=s["shadow"], mesh=(cuda,) * 2)
     assert shade.launch.launches == before + 2 * 2 * 3  # shards x chunks x bounces
     close = ((one - two).abs().amax(dim=-1) <= 1e-5).float().mean().item()
     assert close >= 0.999, close

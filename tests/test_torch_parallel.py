@@ -45,11 +45,11 @@ from minipath_tpu.scene import procedural as jax_procedural
 from minipath_tpu.scene.bvh.build import build_bvh as jax_build_bvh
 from minipath_tpu_torch import Camera, RenderSettings, Scene, TriangleBvh, render
 from minipath_tpu_torch.camera import CameraSampler
-from minipath_tpu_torch.parallel import make_device_mesh, map_shards, replicate, shard_ranges
+from minipath_tpu_torch.parallel import frame_shards, gather, make_device_mesh, map_shards, replicate, shard_ranges
 from minipath_tpu_torch.parallel import mesh as tmesh
 from minipath_tpu_torch.render import kernels
 from minipath_tpu_torch.render import wavefront as tw
-from minipath_tpu_torch.render.frame import make_frame_renderer_sharded, render_frame
+from minipath_tpu_torch.render.frame import render_frame
 from minipath_tpu_torch.scene import materials as tm
 from minipath_tpu_torch.scene import procedural
 from minipath_tpu_torch.scene.bvh.build import from_numpy
@@ -89,7 +89,8 @@ def test_make_device_mesh(monkeypatch):
 
 
 def test_shards_share_one_copy_per_device():
-    """A repeated device holds one copy of the scene, the caller's own."""
+    """A repeated device holds one copy of the scene, the caller's own; one
+    device is the one shard of a frame."""
     scene = kernels.prepare_scene(TriangleBvh.build(procedural.make_cube(1.0)).arrays("cpu"))
     copies = replicate(scene, ("cpu",) * 4)
     assert len(copies) == 4 and all(c is scene for c in copies)
@@ -97,6 +98,17 @@ def test_shards_share_one_copy_per_device():
     assert shard_ranges(3, 4) == [(0, 1), (1, 2), (2, 3), (3, 3)]
     x = torch.arange(10.0)
     assert torch.equal(map_shards(lambda a: a * 2, x, ("cpu",) * 4), x * 2)
+    # One device is the one shard of every block, on the caller's generator
+    # and objects themselves, with no draw; a mesh draws once for its shards.
+    g = torch.Generator().manual_seed(1)
+    state = g.get_state()
+    [(lo, hi, gen, (obj,))] = frame_shards(None, 12, g, scene)
+    assert (lo, hi) == (0, 12) and gen is g and obj is scene and torch.equal(g.get_state(), state)
+    shards = frame_shards(("cpu",) * 5, 12, g, scene)
+    assert [(lo, hi) for lo, hi, _, _ in shards] == [(0, 3), (3, 6), (6, 9), (9, 12)]
+    assert all(gen is not g and obj is scene for _, _, gen, (obj,) in shards)
+    assert not torch.equal(g.get_state(), state)
+    assert torch.equal(gather([x[:4], x[4:]], ("cpu",) * 2), x) and gather([x], None) is x
 
 
 # ---- pixel packets ------------------------------------------------------------
@@ -147,13 +159,12 @@ def test_sharded_parity_frame_matches_jax_and_the_unsharded_frame():
     scene = kernels.prepare_scene(from_numpy(jb.host_arrays._asdict(), "cpu"))
     sampler = _sampler(js)
     seed = int(jax_render_seed(key))
+    kw = dict(width=W, height=H, spp=4, stack_size=stack, sobol=True, strat_seed=seed, samples_per_packet=2)
     frames = {
-        n: make_frame_renderer_sharded(("cpu",) * n, width=W, height=H, stack_size=stack, samples_per_packet=2)(
-            scene, sampler, None, 4, sobol=True, strat_seed=seed)
+        n: render_frame(scene, sampler, None, mesh=("cpu",) * n, **kw)
         for n in (1, 4, 5)  # 12 blocks: 4 shards of 3; 5 shards of 3, 3, 3, 3, 0
     }
-    single = render_frame(scene, sampler, None, width=W, height=H, spp=4, stack_size=stack, sobol=True,
-                          strat_seed=seed, samples_per_packet=2)
+    single = render_frame(scene, sampler, None, **kw)
     for n, frame in frames.items():
         assert torch.equal(frame, single), n
     got = frames[4].numpy()
@@ -170,11 +181,10 @@ def test_sharded_parity_frame_draws_per_shard_generators():
     one seed reproduces it."""
     bvh = TriangleBvh.build(_parity_mesh(procedural))
     sampler = _camera(Camera).build_sampler((W, H), "cpu")
-    render_sharded = make_frame_renderer_sharded(("cpu",) * 4, width=W, height=H,
-                                                 stack_size=bvh.recommended_stack_size)
 
     def sharded(seed):
-        return render_sharded(bvh.kernel_scene("cpu"), sampler, torch.Generator().manual_seed(seed), 4)
+        return render_frame(bvh.kernel_scene("cpu"), sampler, torch.Generator().manual_seed(seed), width=W,
+                            height=H, spp=4, stack_size=bvh.recommended_stack_size, mesh=("cpu",) * 4)
 
     a, b = sharded(1), sharded(1)
     single = render_frame(bvh.kernel_scene("cpu"), sampler, torch.Generator().manual_seed(1), width=W, height=H,
@@ -224,13 +234,9 @@ def test_sharded_pt_matches_jax(small_atrium, nee):
         shadow, _ = tw.make_pt_shadow_tracer(scene, stack_size=stack)
         lights = tm.build_light_table(res.arrays.tri_packets, res.arrays.tri_material, table)
     sampler, env, seed = _sampler(js), tm.Environment.sky("cpu"), int(jax_render_seed(key))
-    frames = [
-        tw.make_pt_renderer_sharded(("cpu",) * n, tracer, lights=lights, shadow_tracer=shadow, **kw)(
-            scene, table, sampler, None, 2, env=env, strat_seed=seed)
-        for n in (1, 4)
-    ]
-    single = tw.render_frame_pt(tracer, scene, table, sampler, None, spp=2, env=env, strat_seed=seed,
-                                lights=lights, shadow_tracer=shadow, **kw)
+    kw.update(spp=2, env=env, strat_seed=seed, lights=lights, shadow_tracer=shadow)
+    frames = [tw.render_frame_pt(tracer, scene, table, sampler, None, mesh=("cpu",) * n, **kw) for n in (1, 4)]
+    single = tw.render_frame_pt(tracer, scene, table, sampler, None, **kw)
     assert torch.equal(frames[0], single) and torch.equal(frames[1], single)
     got = frames[1].numpy()
     assert got.shape == want.shape == (H, W, 4) and np.isfinite(got).all()
@@ -238,6 +244,29 @@ def test_sharded_pt_matches_jax(small_atrium, nee):
     assert close.mean() >= 0.98, close.mean()
     np.testing.assert_allclose(got[..., :3].mean(), want[..., :3].mean(), rtol=1e-3)
     assert got[..., :3].mean() > 0.05
+
+
+@pytest.mark.parametrize("n", [1, 3])
+def test_pt_mesh_keeps_clamp_and_variance(small_atrium, n):
+    """Every argument of ``render_frame_pt`` holds over a mesh: in Sobol
+    mode with no roulette draw, a mesh of ``n`` renders the one-device
+    frame and its variance bit for bit, both clamped."""
+    res, dicts = small_atrium
+    scene = kernels.prepare_scene_pt(from_numpy(res.arrays._asdict(), "cpu"))
+    table = tm.material_table(dicts, "cpu")
+    tracer, _ = tw.make_pt_tracer(scene, stack_size=res.recommended_stack_size)
+    shadow, _ = tw.make_pt_shadow_tracer(scene, stack_size=res.recommended_stack_size)
+    lights = tm.build_light_table(res.arrays.tri_packets, res.arrays.tri_material, table)
+    sampler = Camera().look_at((-16.0, 4.0, 0.0), (10.0, 3.0, 0.5)).f_number(8.0).sensor_width(
+        36e-3).build_sampler((W, H), "cpu")
+    clamp = 0.25
+    kw = dict(width=W, height=H, spp=4, samples_per_packet=2, bounces=3, sobol=True, shadow_rr=False,
+              strat_seed=11, lights=lights, shadow_tracer=shadow, clamp=clamp, return_variance=True)
+    img, var = tw.render_frame_pt(tracer, scene, table, sampler, None, mesh=("cpu",) * n, **kw)
+    single, single_var = tw.render_frame_pt(tracer, scene, table, sampler, None, **kw)
+    assert torch.equal(img, single) and torch.equal(var, single_var)
+    assert var.shape == (H, W) and var.max() > 0
+    assert 0.05 < img[..., :3].mean() and img[..., :3].max() <= clamp
 
 
 # ---- render(mesh=) --------------------------------------------------------------
@@ -278,8 +307,8 @@ def test_render_frame_sum_sharded_matches_jax():
     sampler = _sampler(js)
     single = tmesh.render_frame_sum(bvh, sampler, torch.Generator().manual_seed(7), width=w, height=h, spp=spp,
                                     stack_size=stack).numpy()
-    sharded = tmesh.render_frame_sum_sharded(bvh, sampler, torch.Generator().manual_seed(7), ("cpu",) * 3,
-                                             width=w, height=h, spp=spp, stack_size=stack).numpy()
+    sharded = tmesh.render_frame_sum(bvh, sampler, torch.Generator().manual_seed(7), width=w, height=h, spp=spp,
+                                     stack_size=stack, mesh=("cpu",) * 3).numpy()
     for got in (single, sharded):
         assert got.shape == want.shape == (h, w, 4)
         assert abs(want[..., 3].mean() - got[..., 3].mean()) < 0.05 * spp

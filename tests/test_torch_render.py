@@ -2,6 +2,7 @@
 renderer seed-matched in Sobol mode, ``render()``'s API, its image against
 the JAX ``render()`` statistically, and the CLI."""
 
+import math
 import subprocess
 import sys
 import threading
@@ -26,6 +27,7 @@ from minipath_tpu_torch.render import machinery
 from minipath_tpu_torch.render.frame import render_frame
 from minipath_tpu_torch.render.kernels import prepare_scene
 from minipath_tpu_torch.scene import procedural
+from minipath_tpu_torch.scene.primitives import Sphere
 from minipath_tpu_torch.scene.bvh.build import from_numpy
 from minipath_tpu_torch.screen_block import ScreenBlock
 
@@ -341,6 +343,68 @@ def test_sphere_ignores_backend():
         p.wait()
         images.append(p.image())
     assert np.array_equal(images[0], images[1]) and (images[0][..., 3] > 0).any()
+
+
+def _nan_on_miss(normal, hit):
+    return torch.where(hit[..., None], normal, torch.nan)
+
+
+@pytest.mark.parametrize("engine", ["kernel", "portable", "sphere"])
+def test_tile_engines_shade_by_one_rule(bvh, monkeypatch, engine):
+    """Each tile engine's image follows the one parity shader's rule on one
+    seed: a hit sums ``|d.n|`` with alpha 1, a miss sums 0 with alpha 0. A
+    miss's normal, made non-finite here, never reaches the image."""
+    from minipath_tpu_torch.render import integrator
+
+    seen = []  # (direction, normal, hit) of every lane, as the trace returned them
+    stack = dict(stack_size=bvh.recommended_stack_size)
+    if engine == "kernel":
+        real_trace = integrator.trace_scene
+
+        def trace(scene, rays9, **kw):
+            kh = real_trace(scene, rays9, **kw)
+            kh = kh._replace(normal=_nan_on_miss(kh.normal, kh.tri >= 0))
+            seen.append((rays9[:, 3:6].transpose(1, 2), kh.normal, kh.tri >= 0))
+            return kh
+
+        monkeypatch.setattr(integrator, "trace_scene", trace)
+        scene, fn = bvh.kernel_scene("cpu"), integrator.render_tile_batch_bvh
+    elif engine == "portable":
+        real_intersect = integrator.intersect_bvh
+
+        def intersect(arrays, rays, **kw):
+            hits = real_intersect(arrays, rays, **kw)
+            hits = hits._replace(normal=_nan_on_miss(hits.normal, hits.hit))
+            seen.append((rays.direction, hits.normal, hits.hit))
+            return hits
+
+        monkeypatch.setattr(integrator, "intersect_bvh", intersect)
+        scene, fn = bvh.arrays("cpu"), integrator.render_tile_batch_bvh_portable
+    else:
+        class Recorded(Sphere):
+            def intersect(self, rays, t_max=math.inf):
+                hits = super().intersect(rays, t_max)
+                hits = hits._replace(normal=_nan_on_miss(hits.normal, hits.hit))
+                seen.append((rays.direction, hits.normal, hits.hit))
+                return hits
+
+        scene, fn, stack = Recorded(center=(0.0, 1.5, 0.0), radius=1.0), integrator.render_tile_batch_sphere, {}
+    tile_shape, packet_shape = (16, 16), (8, 8)
+    origins = torch.tensor([[0.0, 0.0], [16.0, 16.0], [32.0, 0.0]])
+    sampler = _camera(Camera).build_sampler((48, 32), "cpu")
+    # One sample a pixel: each pixel's sum is its one sample.
+    got = fn(scene, sampler, origins, torch.Generator().manual_seed(9), 123, tile_shape=tile_shape,
+             packet_shape=packet_shape, spp=1, **stack)
+
+    (d, n, hit), = seen
+    shaded = torch.where(hit, torch.abs(torch.sum(d * n, dim=-1)), 0.0)
+    want = torch.stack([shaded, shaded, shaded, hit.to(torch.float32)], dim=-1)
+    want = integrator.unpack_tile(want.reshape(3, -1, 64, 4), tile_shape, packet_shape)
+    miss = want[..., 3] == 0
+    assert got.shape == (3, 16, 16, 4) and torch.isfinite(got).all()
+    assert 0.05 < miss.float().mean() < 0.95
+    assert not got[miss].any() and (got[~miss][:, 3] == 1.0).all()
+    assert torch.equal(got, want)
 
 
 # Frame mode against tile mode: (tile_size, square resolution), one dispatch

@@ -35,7 +35,15 @@ PORT = REPO / "minipath_tpu_torch"
 # portable engine's.
 RENAMED = {
     ("parallel/__init__.py", "render_frame_sum"): ("parallel/mesh.py", "render_frame_sum"),
-    ("parallel/__init__.py", "render_frame_sum_sharded"): ("parallel/mesh.py", "render_frame_sum_sharded"),
+    # A mesh is an argument of each renderer (``mesh=``), not a second factory.
+    ("parallel/__init__.py", "render_frame_sum_sharded"): ("parallel/mesh.py", "render_frame_sum"),
+    ("parallel/mesh.py", "render_frame_sum_sharded"): ("parallel/mesh.py", "render_frame_sum"),
+    ("render/frame.py", "make_frame_renderer_sharded"): ("render/frame.py", "render_frame"),
+    ("render/wavefront.py", "make_pt_renderer_sharded"): ("render/wavefront.py", "render_frame_pt"),
+    # The port's one parity shader serves the tile integrators, the frames
+    # and the portable engine.
+    ("render/integrator.py", "shade_normal_dot"): ("render/frame.py", "shade_parity_sum"),
+    ("utils/profiling.py", "annotate"): ("utils/profiling.py", "span"),
     ("parallel/mesh.py", "CAMERA_SALT"): ("render/frame.py", "CAMERA_SALT"),
     ("parallel/mesh.py", "gen_frame_rays9"): ("render/frame.py", "gen_frame_rays9"),
     ("parallel/mesh.py", "gen_rays9_blocks"): ("render/frame.py", "gen_rays9_blocks"),

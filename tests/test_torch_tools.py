@@ -276,7 +276,7 @@ def test_annotations_name_every_phase_of_the_bounce_loop(tmp_path):
     from minipath_tpu_torch.render import wavefront as tw
     from minipath_tpu_torch.scene import materials as tm
     from minipath_tpu_torch.scene import procedural
-    from minipath_tpu_torch.utils.profiling import annotate, trace
+    from minipath_tpu_torch.utils.profiling import span, trace
 
     mesh = procedural.make_atrium(0)
     ids, dicts = procedural.atrium_materials(mesh)
@@ -288,7 +288,7 @@ def test_annotations_name_every_phase_of_the_bounce_loop(tmp_path):
     lights = tm.build_light_table(bvh.host_arrays.tri_packets, bvh.host_arrays.tri_material, table)
     camera = Camera().look_at((-16.0, 4.0, 0.0), (10.0, 3.0, 0.5)).f_number(8.0).sensor_width(36e-3)
     with trace(tmp_path / "prof") as prof:
-        with annotate("test.frame"):
+        with span("test.frame"):
             img = tw.render_frame_pt(tracer, scene, table, camera.build_sampler((16, 16), "cpu"),
                                      torch.Generator().manual_seed(0), width=16, height=16, spp=2, bounces=2,
                                      samples_per_packet=2, lights=lights, shadow_tracer=shadow)

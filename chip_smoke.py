@@ -251,6 +251,20 @@ Phase 29 runs after phase 7:
     version's, and its bound by the bytes each lane class must move; then
     the same for a frame of eight such chunks.
 
+Phase 32 runs after phase 29:
+
+32. The compaction kernels (``csrc/compact.cu``) against the plain
+    compaction on the main path's state at full width: the states that
+    enter the compaction at bounces 1-4 of the first 8-spp chunk of a
+    pt-1080p64-nee1 frame (16,711,680 lanes), each compacted by
+    ``_compact_kernel`` and ``_compact_plain``; every field of the result
+    equal on every lane (the permutation among them). ptxas' report; the
+    time of the key and permute kernels and their bound by bytes (the
+    kernels line's row); the kernel path's time with the bounding box and
+    ``torch.sort``, and its bound; the plain path's time; each stage's time
+    and bound, and both paths' peak memory; then the sum of the four
+    bounces for a frame of eight chunks.
+
 Phase 31 runs after phase 3:
 
 31. The camera-ray kernel (``csrc/camera.cu``) against the plain chain
@@ -264,10 +278,10 @@ Phase 31 runs after phase 3:
     ``render()`` frame at 1920x1080 @ 64 spp in tile mode with a callback:
     16 camera launches, ``camera.kernel_lanes`` 133,693,440.
 
-``python3 chip_smoke.py --kernels-only`` runs phases 1, 2, 3, 31, 6, 29 and
-10 alone: the traversal, camera and shading kernels against their plain
-versions, with their times, bounds and requested bytes (about three minutes,
-most of it the three scene builds).
+``python3 chip_smoke.py --kernels-only`` runs phases 1, 2, 3, 31, 6, 29, 32
+and 10 alone: the traversal, camera, shading and compaction kernels against
+their plain versions, with their times, bounds and requested bytes (about
+three minutes, most of it the three scene builds).
 
 ``python3 chip_smoke.py --profile DIR`` also writes a ``torch.profiler``
 summary of one warm path-traced frame to DIR, over the f32 layout (after
@@ -425,15 +439,15 @@ def phase_device():
 
 
 def phase_build():
-    """The five sources at once, one nvcc each."""
+    """The six sources at once, one nvcc each."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from minipath_tpu_torch.render import camera_rays, kernels, kernels_q, shade
+    from minipath_tpu_torch.render import camera_rays, compact, kernels, kernels_q, shade
     from minipath_tpu_torch.utils import calibrate
 
     t0 = time.perf_counter()
     loaders = (kernels.load_library, kernels_q.load_library, calibrate.load_library, shade.load_library,
-               camera_rays.load_library)
+               camera_rays.load_library, compact.load_library)
     with ThreadPoolExecutor(len(loaders)) as pool:
         libs = [f.result() for f in [pool.submit(load) for load in loaders]]
     from minipath_tpu_torch.render.kernels import STACK_CAPACITY
@@ -458,7 +472,11 @@ def phase_build():
     log("2 build", f"shade.cu: {json.dumps(usage)}")
     if len(usage) != 1 or usage[0]["spill_stores"] or usage[0]["spill_loads"]:
         raise AssertionError(f"shade.cu: expected one kernel without spills, got {usage}")
-    log("2 build", f"all five built and loaded in {time.perf_counter() - t0:.2f}s")
+    usage = ptxas_usage(libs[5].log)
+    log("2 build", f"compact.cu: {json.dumps(usage)}")
+    if len(usage) != 2 or any(u["spill_stores"] or u["spill_loads"] for u in usage):
+        raise AssertionError(f"compact.cu: expected two kernels without spills, got {usage}")
+    log("2 build", f"all six built and loaded in {time.perf_counter() - t0:.2f}s")
     log("2 build", f"chain kernels' SASS: {json.dumps(chain_sass_counts(libs[2].path))}")
 
 
@@ -924,13 +942,14 @@ def render_pt(parts, device, width, height, spp, nee_max_depth, samples_per_pack
 def phase_pt_main_path(parts, device, smi):
     import warnings
 
-    from minipath_tpu_torch.render import kernels, shade
+    from minipath_tpu_torch.render import compact, kernels, shade
 
     paths = PT_WIDTH * PT_HEIGHT * PT_SPP
     _, cold = render_pt(parts, device, PT_WIDTH, PT_HEIGHT, PT_SPP, 1, 2, seed=0)
     for mode in kernels.trace_packets_pt.launches:
         kernels.trace_packets_pt.launches[mode] = 0
     shade.launch.launches = 0
+    compact.key_pass.launches = compact.permute_pass.launches = 0
     torch.cuda.reset_peak_memory_stats(device)
     torch.cuda.set_sync_debug_mode("warn")
     try:
@@ -941,6 +960,7 @@ def phase_pt_main_path(parts, device, smi):
         torch.cuda.set_sync_debug_mode(0)
     launches = dict(kernels.trace_packets_pt.launches)
     shade_launches = shade.launch.launches
+    compact_launches = {"key": compact.key_pass.launches, "permute": compact.permute_pass.launches}
     syncs = sum("synchroniz" in str(w.message) for w in caught)
     peak = torch.cuda.max_memory_allocated(device)
     if min(launches.values()) == 0:
@@ -949,9 +969,13 @@ def phase_pt_main_path(parts, device, smi):
     if shade_launches != PT_SPP // 2 * PT_BOUNCES:
         raise AssertionError(f"the path-traced frame launched the shading kernel {shade_launches} times, not "
                              f"{PT_SPP // 2 * PT_BOUNCES}")
+    # One key and one permute launch a compaction: bounces 1-4 of every chunk.
+    if compact_launches != dict.fromkeys(("key", "permute"), PT_SPP // 2 * (PT_BOUNCES - 1)):
+        raise AssertionError(f"the path-traced frame's compaction launches: {compact_launches}")
     log("7 pt main path", f"render_frame_pt {PT_WIDTH}x{PT_HEIGHT} @ {PT_SPP} spp, {PT_BOUNCES} bounces, NEE at "
         f"depth 1, samples_per_packet 2 on {smi}: warm frame {warm:.3f} s = {paths / warm / 1e6:.2f} Mpaths/s "
-        f"(cold {cold:.3f} s) | K2 launches {launches}, shading launches {shade_launches} | host syncs in the warm frame {syncs} | peak device memory {peak / 1e9:.2f} GB | image mean {img[..., :3].mean():.5f}, all "
+        f"(cold {cold:.3f} s) | K2 launches {launches}, shading launches {shade_launches}, compaction launches "
+        f"{compact_launches} | host syncs in the warm frame {syncs} | peak device memory {peak / 1e9:.2f} GB | image mean {img[..., :3].mean():.5f}, all "
         f"finite")
 
     w2, h2, spp2 = 960, 540, 8
@@ -965,7 +989,7 @@ def phase_pt_main_path(parts, device, smi):
         f"launches {dict(kernels.trace_packets_pt.launches)} | peak device memory "
         f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB | image mean {img2[..., :3].mean():.5f}, "
         f"all finite")
-    return sum(launches.values()), shade_launches, img, warm
+    return sum(launches.values()), shade_launches, compact_launches, img, warm
 
 
 # Phase 29: one chunk of the pt-1080p64-nee1 frame (8 spp of 1920 x 1088, the
@@ -1157,6 +1181,154 @@ def phase_shade(parts, device, smi):
     out["frame"] = dict(ms=chunks * chunk["ms"], draws_ms=chunks * chunk["draws_ms"],
                         plain_ms=chunks * chunk["plain_ms"], bound_ms=chunks * chunk["bound_ms"], err=0.0,
                         bound_by="bytes", gb=chunks * chunk["nbytes"] / 1e9)
+    return out
+
+
+# Phase 32: the compaction at bounces 1-4 of the first chunk of the
+# pt-1080p64-nee1 frame. The least bytes of each stage's work, a lane (the
+# key pass's staged records are the design's, and not counted): the bounding
+# box reads its origin (12 B); the key reads origin, direction and flag and
+# writes the key (25 + 4 B); the permute pass reads the index (8 B), gathers
+# origin, direction, throughput, radiance, pixel slot and MIS pdf (56 B, 52 B
+# without NEE) and writes them with the inverse direction and the live flag
+# (69 B, 65 B without NEE). torch.sort's are the bytes of the passes it makes
+# over an int32 key with int64 indices: it writes the indices it starts from
+# (8 B), reads the keys for its histograms (4 B) and reads and writes key and
+# index in each of four 8-bit passes (4 x 24 B), though the key has 20 bits.
+COMPACT_STAGE_BYTES = {"bounding box": 12, "key": 29, "sort": 8 + 4 + 4 * 24, "permute": 8 + 52 + 65}
+COMPACT_NEE_BYTES = 4 + 4  # the MIS pdf gathered and written
+# The hand-written passes; the bounding box (amin, amax) and the sort are
+# PyTorch's.
+COMPACT_KERNEL_STAGES = ("key", "permute")
+
+
+def compact_bytes(lanes, nee):
+    """The least bytes of each stage of one compaction of ``lanes`` lanes
+    (:data:`COMPACT_STAGE_BYTES`), by stage."""
+    out = {stage: lanes * b for stage, b in COMPACT_STAGE_BYTES.items()}
+    out["permute"] += lanes * COMPACT_NEE_BYTES * nee
+    return out
+
+
+def phase_compact(parts, device, smi):
+    """Phase 32: the compaction kernels (``csrc/compact.cu``) against the
+    plain compaction on the main path's state at full width. One
+    pt-1080p64-nee1 frame keeps the states that enter its first chunk's
+    compactions at bounces 1-4; each is compacted by ``_compact_kernel`` and
+    ``_compact_plain``, and every field of the two results must agree on
+    every lane. Prints ptxas' report; for each bounce the time of the two
+    hand-written passes and their bound by bytes (the kernels line's row),
+    the whole kernel path's time (with the bounding box and ``torch.sort``)
+    and its bound, the plain path's time, each stage's time and bound, and
+    each path's peak memory above its input; then the sum of the four
+    bounces times the frame's chunks. Returns the kernels line's results, by
+    bounce and for the frame."""
+    from minipath_tpu_torch.render import compact
+    from minipath_tpu_torch.render import wavefront as W
+    from minipath_tpu_torch.utils.roofline import PEAK_HBM_BYTES
+
+    usage = ptxas_usage(compact.load_library().log)
+    log("32 compact", f"compact.cu: {json.dumps(usage)}")
+    captured, real = [], W._compact
+
+    def capturing(state, fine_direction=True):
+        if len(captured) < PT_BOUNCES - 1:
+            captured.append((state, fine_direction))
+        return real(state, fine_direction=fine_direction)
+
+    W._compact = capturing
+    try:
+        render_pt(parts, device, PT_WIDTH, PT_HEIGHT, PT_SPP, 1, SHADE_CHUNK, seed=32)
+    finally:
+        W._compact = real
+    if [fine for _, fine in captured] != [True] + [False] * (PT_BOUNCES - 2):
+        raise AssertionError(f"captured compactions {[fine for _, fine in captured]}")
+
+    def peak_above_input(make):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        out = make()
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated(device) - base
+
+    passes = {"key": W.key_pass, "permute": W.permute_pass}
+    sums = ("ms", "path_ms", "plain_ms", "bound_ms", "path_bound_ms", "nbytes", "path_nbytes")
+    out, chunk, chunk_stages = {}, dict.fromkeys(sums, 0.0), dict.fromkeys(COMPACT_STAGE_BYTES, 0.0)
+    for bounce, (state, fine) in enumerate(captured, start=1):
+        fields = {}
+
+        def recording(stage):
+            def launch(dev, **f):
+                fields[stage] = f
+                return passes[stage](dev, **f)
+            return launch
+
+        W.key_pass, W.permute_pass = recording("key"), recording("permute")
+        try:
+            got, kernel_peak = peak_above_input(lambda: W._compact_kernel(state, fine))
+        finally:
+            W.key_pass, W.permute_pass = passes["key"], passes["permute"]
+        want, plain_peak = peak_above_input(lambda: W._compact_plain(state, fine))
+        diffs = {name: exact_differences(getattr(got, name), getattr(want, name))
+                 for name in W._PathState._fields if getattr(want, name) is not None}
+        diffs["prev_pdf is None"] = int((got.prev_pdf is None) != (want.prev_pdf is None))
+        lanes, nee = state.origin.shape[0], state.prev_pdf is not None
+        live = int(state.active.sum())
+        del got, want
+        path_ms = cuda_ms(lambda: W._compact_kernel(state, fine), 10)
+        plain_ms = cuda_ms(lambda: W._compact_plain(state, fine), 3)
+        key = fields["key"]["key"]
+        # Relaunched alone, the key pass adds to its live count again; the
+        # result was compared above, and the time does not depend on it.
+        stage_ms = {
+            "bounding box": cuda_ms(lambda: (state.origin.amin(dim=0), state.origin.amax(dim=0)), 10),
+            "key": cuda_ms(lambda: passes["key"](device, **fields["key"]), 10),
+            "sort": cuda_ms(lambda: torch.sort(key), 10),
+            "permute": cuda_ms(lambda: passes["permute"](device, **fields["permute"]), 10),
+        }
+        nbytes = compact_bytes(lanes, nee)
+        bound = {stage: b / PEAK_HBM_BYTES * 1e3 for stage, b in nbytes.items()}
+        ms = sum(stage_ms[stage] for stage in COMPACT_KERNEL_STAGES)
+        kernel_nbytes = sum(nbytes[stage] for stage in COMPACT_KERNEL_STAGES)
+        bound_ms = sum(bound[stage] for stage in COMPACT_KERNEL_STAGES)
+        path_bound_ms = sum(bound.values())
+        stages = " | ".join(f"{stage} {t:.4f} ms (bound {bound[stage]:.4f} ms, {nbytes[stage] / lanes:.0f} B a "
+                            f"lane: {100 * bound[stage] / t:.1f}%)" for stage, t in stage_ms.items())
+        text = (f"bounce {bounce} ({'96 direction bins' if fine else 'octants'}, {'NEE' if nee else 'no NEE'}): "
+                f"{lanes} lanes, {live} live | lanes that differ {json.dumps(diffs)} | the key and permute "
+                f"kernels {ms:.4f} ms, bound {bound_ms:.4f} ms by bytes: {100 * bound_ms / ms:.1f}% | the "
+                f"kernels' path {path_ms:.4f} ms, bound {path_bound_ms:.4f} ms ({sum(nbytes.values()) / 1e9:.3f} "
+                f"GB): {100 * path_bound_ms / path_ms:.1f}%; the sort {100 * stage_ms['sort'] / path_ms:.1f}% of "
+                f"it | plain {plain_ms:.3f} ms | {stages} | peak memory above the input: kernels' path "
+                f"{kernel_peak / 1e9:.3f} GB, plain {plain_peak / 1e9:.3f} GB")
+        if any(diffs.values()):
+            raise AssertionError(f"the compaction kernels disagree with the plain compaction on {smi}: {text}")
+        log("32 compact", text)
+        out[f"bounce {bounce}"] = dict(ms=ms, plain_ms=plain_ms, err=0.0, bound_ms=bound_ms, bound_by="bytes",
+                                       gb=kernel_nbytes / 1e9, path_ms=path_ms, path_bound_ms=path_bound_ms,
+                                       path_gb=sum(nbytes.values()) / 1e9, stage_ms=stage_ms, stage_bound_ms=bound,
+                                       kernel_peak_gb=kernel_peak / 1e9, plain_peak_gb=plain_peak / 1e9)
+        for k, v in (("ms", ms), ("path_ms", path_ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms),
+                     ("path_bound_ms", path_bound_ms), ("nbytes", kernel_nbytes),
+                     ("path_nbytes", sum(nbytes.values()))):
+            chunk[k] += v
+        for stage, t in stage_ms.items():
+            chunk_stages[stage] += t
+        del fields
+    del captured
+    chunks = PT_SPP // SHADE_CHUNK
+    frame = {k: chunks * v for k, v in chunk.items()}
+    log("32 compact", f"a frame of {chunks} chunks (bounces 1-4 of each: {chunks * (PT_BOUNCES - 1)} "
+        f"compactions): the key and permute kernels {frame['ms']:.2f} ms, bound {frame['bound_ms']:.2f} ms by "
+        f"bytes ({frame['nbytes'] / 1e9:.2f} GB): {100 * frame['bound_ms'] / frame['ms']:.1f}% | the kernels' "
+        f"path {frame['path_ms']:.2f} ms, bound {frame['path_bound_ms']:.2f} ms ({frame['path_nbytes'] / 1e9:.2f} "
+        f"GB): {100 * frame['path_bound_ms'] / frame['path_ms']:.1f}% | plain {frame['plain_ms']:.1f} ms | by "
+        f"stage {json.dumps({k: round(chunks * v, 3) for k, v in chunk_stages.items()})} ms | {smi}")
+    out["frame"] = dict(ms=frame["ms"], plain_ms=frame["plain_ms"], bound_ms=frame["bound_ms"], err=0.0,
+                        bound_by="bytes", gb=frame["nbytes"] / 1e9, path_ms=frame["path_ms"],
+                        path_bound_ms=frame["path_bound_ms"], path_gb=frame["path_nbytes"] / 1e9,
+                        stage_ms={k: chunks * v for k, v in chunk_stages.items()})
     return out
 
 
@@ -3302,8 +3474,9 @@ def main() -> int:
         parts = pt_parts(pt_bvh, dicts, device)
         _, sets = phase_k2(pt_bvh, parts, device)
         phase_shade(parts, device, smi)
+        phase_compact(parts, device, smi)
         phase_k3(build_big_atrium(device), pt_bvh, parts[0], sets, device)
-        print("kernels only: phases 1, 2, 3, 31, 6, 29 and 10 passed", flush=True)
+        print("kernels only: phases 1, 2, 3, 31, 6, 29, 32 and 10 passed", flush=True)
         return 0
     # The CLI's tree (and phase 15's), and the bench's.
     cli_tree = native_tree()
@@ -3316,8 +3489,9 @@ def main() -> int:
     pt_bvh, dicts = build_pt_atrium()
     parts = pt_parts(pt_bvh, dicts, device)
     k2, sets = phase_k2(pt_bvh, parts, device)
-    k2_launches, shade_launches, ref64, pt_warm = phase_pt_main_path(parts, device, smi)
+    k2_launches, shade_launches, compact_launches, ref64, pt_warm = phase_pt_main_path(parts, device, smi)
     shaded = phase_shade(parts, device, smi)
+    compacted = phase_compact(parts, device, smi)
     pt_mean = float(ref64[..., :3].mean())
     shadow_sort_launches = phase_shadow_sort(parts, sets, pt_bvh, device, smi)
     phase_card_vs_cpu(pt_bvh, dicts, device)
@@ -3366,7 +3540,8 @@ def main() -> int:
             "max_abs_err": max(x["err"] for x in results.values()), "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             # No PyTorch call traverses a BVH, no single call computes a
-            # dependent chain, and none shades a bounce or makes camera rays.
+            # dependent chain, and none shades a bounce, makes camera rays
+            # or compacts a path state.
             "library_ms": None,
             **extra,
         }
@@ -3397,6 +3572,9 @@ def main() -> int:
         # Port only: the JAX package leaves ray generation to XLA.
         entry("camera_rays", "minipath_tpu_torch/csrc/camera.cu", None, camera_launches, camera,
               "parity dispatch pass"),
+        # Port only: the JAX package leaves the key and the gather to XLA.
+        entry("compaction", "minipath_tpu_torch/csrc/compact.cu", None, compact_launches, compacted, "bounce 1",
+              frame=compacted["frame"], by_bounce={k: v for k, v in compacted.items() if k != "frame"}),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

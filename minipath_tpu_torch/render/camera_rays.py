@@ -23,6 +23,8 @@ from pathlib import Path
 
 import torch
 
+from minipath_tpu_torch.utils.cuda_build import KernelEntry
+
 _SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "camera.cu"
 
 _vp, _i32, _u32, _i64, _f32 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_uint32, ctypes.c_int64, ctypes.c_float
@@ -44,51 +46,10 @@ class _Args(ctypes.Structure):
     ]
 
 
-_NAMES = frozenset(name for name, _ in _Args._fields_)
-
-
-def load_library():
-    """Build (at first use) and load the kernel library; returns the
-    :class:`~minipath_tpu_torch.utils.cuda_build.CudaLibrary`."""
-    from minipath_tpu_torch.utils.cuda_build import load_cuda_library
-
-    built = load_cuda_library(_SOURCE)
-    lib = built.lib
-    if lib.mp_camera_rays.argtypes is None:
-        lib.mp_camera_rays.argtypes = [ctypes.POINTER(_Args), _vp]
-        lib.mp_camera_rays.restype = _i32
-        lib.mp_camera_error_string.argtypes = [_i32]
-        lib.mp_camera_error_string.restype = ctypes.c_char_p
-        lib.mp_camera_args_size.restype = _i32
-        if lib.mp_camera_args_size() != ctypes.sizeof(_Args):
-            raise RuntimeError("render/camera_rays.py::_Args disagrees with CameraArgs in csrc/camera.cu")
-    return built
-
-
-def launch(device: torch.device, **fields) -> None:
-    """Launch the camera rays on ``device``'s current stream. Each of
-    ``fields`` names a field of :class:`_Args`: a tensor (on ``device``; its
-    address is passed), None (a null pointer) or a number. The caller keeps
-    the tensors alive and gives them the dtypes and shapes the kernel reads.
-    ``launch.launches`` counts launches."""
-    args = _Args()
-    for name, value in fields.items():
-        if name not in _NAMES:
-            raise TypeError(f"no field {name!r} in CameraArgs")
-        if isinstance(value, torch.Tensor):
-            if value.device != device:
-                raise ValueError(f"{name} is on {value.device}, the launch on {device}")
-            value = value.data_ptr()
-        setattr(args, name, value)
-    lib = load_library().lib
-    with torch.cuda.device(device):
-        err = lib.mp_camera_rays(ctypes.byref(args), torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"camera kernel launch failed: cudaError {err} ({lib.mp_camera_error_string(err).decode()})")
-    launch.launches += 1
-
-
-launch.launches = 0
+# The camera rays of a batch of packets: ``launch(device, **fields)`` (see
+# :class:`~minipath_tpu_torch.utils.cuda_build.KernelEntry`).
+launch = KernelEntry(_SOURCE, _Args, "mp_camera", "rays")
+load_library = launch.load
 
 
 def lane_pixels(origin: torch.Tensor, *, px_block, samples: int, s0: int, row_stride: int, x_mask: int = -1,

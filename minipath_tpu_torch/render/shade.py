@@ -22,7 +22,7 @@ from __future__ import annotations
 import ctypes
 from pathlib import Path
 
-import torch
+from minipath_tpu_torch.utils.cuda_build import KernelEntry
 
 _SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "shade.cu"
 
@@ -56,51 +56,10 @@ class _Args(ctypes.Structure):
     ]
 
 
-_NAMES = frozenset(name for name, _ in _Args._fields_)
-
 # The strata modes of ShadeArgs::strat_mode.
 STRAT_NONE, STRAT_JITTER, STRAT_SOBOL = 0, 1, 2
 
-
-def load_library():
-    """Build (at first use) and load the kernel library; returns the
-    :class:`~minipath_tpu_torch.utils.cuda_build.CudaLibrary`."""
-    from minipath_tpu_torch.utils.cuda_build import load_cuda_library
-
-    built = load_cuda_library(_SOURCE)
-    lib = built.lib
-    if lib.mp_shade_bounce.argtypes is None:
-        lib.mp_shade_bounce.argtypes = [ctypes.POINTER(_Args), _vp]
-        lib.mp_shade_bounce.restype = _i32
-        lib.mp_shade_error_string.argtypes = [_i32]
-        lib.mp_shade_error_string.restype = ctypes.c_char_p
-        lib.mp_shade_args_size.restype = _i32
-        if lib.mp_shade_args_size() != ctypes.sizeof(_Args):
-            raise RuntimeError("render/shade.py::_Args disagrees with ShadeArgs in csrc/shade.cu")
-    return built
-
-
-def launch(device: torch.device, **fields) -> None:
-    """Launch one bounce's shading on ``device``'s current stream. Each of
-    ``fields`` names a field of :class:`_Args`: a tensor (on ``device``; its
-    address is passed), None (a null pointer) or a number. The caller keeps
-    the tensors alive and gives them the dtypes and shapes the kernel reads.
-    ``launch.launches`` counts launches."""
-    args = _Args()
-    for name, value in fields.items():
-        if name not in _NAMES:
-            raise TypeError(f"no field {name!r} in ShadeArgs")
-        if isinstance(value, torch.Tensor):
-            if value.device != device:
-                raise ValueError(f"{name} is on {value.device}, the launch on {device}")
-            value = value.data_ptr()
-        setattr(args, name, value)
-    lib = load_library().lib
-    with torch.cuda.device(device):
-        err = lib.mp_shade_bounce(ctypes.byref(args), torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"shade kernel launch failed: cudaError {err} ({lib.mp_shade_error_string(err).decode()})")
-    launch.launches += 1
-
-
-launch.launches = 0
+# One bounce's shading: ``launch(device, **fields)`` (see
+# :class:`~minipath_tpu_torch.utils.cuda_build.KernelEntry`).
+launch = KernelEntry(_SOURCE, _Args, "mp_shade", "bounce")
+load_library = launch.load

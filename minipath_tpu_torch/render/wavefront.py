@@ -13,7 +13,9 @@ sync per bounce. A bounce's shading (everything between a closest-hit trace
 and the next compaction or trace, but the shadow trace) is one launch of the
 bounce-shading kernel on a card (:func:`_shade_kernel`, ``render/shade.py``)
 and plain PyTorch elsewhere (:func:`_shade_plain`, the kernel's reference);
-the two agree bit for bit on the card.
+the two agree bit for bit on the card. The compaction likewise is two
+kernels around one ``torch.sort`` on a card (:func:`_compact_kernel`,
+``render/compact.py``) and plain PyTorch elsewhere (:func:`_compact_plain`).
 
 Random numbers come from an explicit ``torch.Generator`` in place of
 ``jax.random`` keys. In Sobol mode (``sobol=True``) every camera, BSDF and
@@ -43,6 +45,7 @@ import torch
 from minipath_tpu_torch.camera import CameraSampler
 from minipath_tpu_torch.geometry.ray import Rays
 from minipath_tpu_torch.parallel import frame_shards, gather
+from minipath_tpu_torch.render.compact import key_pass, permute_pass
 from minipath_tpu_torch.render.frame import gen_rays9_blocks, rays9_to_rays, unpack_frame
 from minipath_tpu_torch.render.kernels import KernelHits, KernelScene, PTHits, PTScene, _live_count, trace_packets_pt
 from minipath_tpu_torch.render.kernels_q import QPTScene, QuantizedScene, trace_packets_q, trace_scene
@@ -496,9 +499,20 @@ def _compact(state: _PathState, fine_direction: bool = True) -> _PathState:
     ``fine_direction`` uses the 96 direction bins (first bounce: directions
     still correlate with camera-facing surfaces); otherwise the 8 octants.
 
-    One ``torch.sort`` of the int32 key, then one gather of the payload by
-    the permutation (the pixel index rides along as float32 bits);
-    ``inv_direction`` is recomputed.
+    The device decides the route: on a card the key and the gather are the
+    kernels of ``csrc/compact.cu`` (:func:`_compact_kernel`), elsewhere plain
+    PyTorch (:func:`_compact_plain`, their reference); the two return the
+    same state bit for bit.
+    """
+    if state.origin.device.type == "cuda":
+        return _compact_kernel(state, fine_direction)
+    return _compact_plain(state, fine_direction)
+
+
+def _compact_plain(state: _PathState, fine_direction: bool = True) -> _PathState:
+    """:func:`_compact` in plain PyTorch: one ``torch.sort`` of the int32
+    key, then one gather of the payload by the permutation (the pixel index
+    rides along as float32 bits); ``inv_direction`` is recomputed.
     """
     cell_id = _morton16(_position_cells(state.origin))  # 12 bits
     d = state.direction
@@ -526,6 +540,57 @@ def _compact(state: _PathState, fine_direction: bool = True) -> _PathState:
         active=torch.arange(key.shape[0], dtype=torch.int32, device=key.device) < n_live,
         prev_pdf=g[5][:, 0] if state.prev_pdf is not None else None,
     )
+
+
+def _compact_kernel(state: _PathState, fine_direction: bool = True) -> _PathState:
+    """:func:`_compact_plain` on the state's card: the origins' bounding box
+    by the plain version's ``amin`` and ``amax``, the key pass of
+    ``csrc/compact.cu`` (``render/compact.py``; it also stages each lane's
+    payload in a 64-byte record and counts the live lanes), the plain
+    version's ``torch.sort`` of the same key (so the same permutation, ties
+    included), and the permute pass, which gathers the records and writes the
+    next state with its inverse direction and its live prefix. The live count
+    stays on the device."""
+    N = state.origin.shape[0]
+    dev = state.origin.device
+    nee = state.prev_pdf is not None
+    origin, s_origin = _rows(state.origin)
+    direction, s_direction = _rows(state.direction)
+    throughput, s_throughput = _rows(state.throughput)
+    radiance, s_radiance = _rows(state.radiance)
+    pixel, s_pixel = _rows(state.pixel, torch.int32)
+    active, s_active = _rows(state.active, torch.bool)
+    prev_pdf, s_prev_pdf = _rows(state.prev_pdf) if nee else (None, 0)
+    key = torch.empty(N, dtype=torch.int32, device=dev)
+    record = torch.empty((N, 16), dtype=torch.float32, device=dev)
+    n_live = torch.zeros(1, dtype=torch.int32, device=dev)
+    key_pass(
+        dev, n=N, origin=origin, s_origin=s_origin, direction=direction, s_direction=s_direction,
+        throughput=throughput, s_throughput=s_throughput, radiance=radiance, s_radiance=s_radiance, pixel=pixel,
+        s_pixel=s_pixel, active=active, s_active=s_active, prev_pdf=prev_pdf, s_prev_pdf=s_prev_pdf,
+        lo=state.origin.amin(dim=0), hi=state.origin.amax(dim=0), fine_direction=int(fine_direction), key=key,
+        record=record, n_live=n_live,
+    )
+    perm = torch.sort(key).indices
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    # The rays as the first bounce has them, views of one (N, 9) tensor: the
+    # trace's packing copies such views faster than three contiguous columns.
+    rays = empty(N, 9)
+    out = _PathState(
+        origin=rays[:, 0:3], direction=rays[:, 3:6], inv_direction=rays[:, 6:9], throughput=empty(N, 3),
+        radiance=empty(N, 3), pixel=empty(N, dtype=torch.int32), active=empty(N, dtype=torch.bool),
+        prev_pdf=empty(N) if nee else None,
+    )
+    permute_pass(
+        dev, n=N, record=record, perm=perm, n_live=n_live, o_rays=rays, o_throughput=out.throughput,
+        o_radiance=out.radiance, o_pixel=out.pixel, o_active=out.active, o_prev_pdf=out.prev_pdf,
+    )
+    if recording():
+        count("pt.compaction_kernel_lanes", N)
+    return out
 
 
 # The keys of the NEE shadow sort. "pos" (position-major) is the default;

@@ -6,7 +6,8 @@ each source (``csrc/traverse.cu``, ``csrc/traverse_q.cu``) is compiled by
 :func:`build_dir`, and loaded with ``ctypes``. A build is keyed on a hash of
 the source, the headers it includes from its own directory, and the flags:
 an unchanged source is built once per build directory, at its first use.
-The target is Hopper (``sm_90a``).
+The target is Hopper (``sm_90a``). :class:`KernelEntry` binds a kernel
+whose arguments travel as one C struct.
 """
 
 from __future__ import annotations
@@ -177,3 +178,61 @@ def load_cuda_library(source: Path) -> CudaLibrary:
         built = CudaLibrary(ctypes.CDLL(str(out)), out, seconds, log)
         _libraries[source] = _libraries[given] = built
         return built
+
+
+class KernelEntry:
+    """The launch of one C entry point of a kernel library whose arguments
+    travel as one C struct: ``int <prefix>_<name>(const void* args, void*
+    stream)`` in ``source``, which also exports ``<prefix>_error_string``
+    and ``<prefix>_args_size``. ``args`` is the ctypes mirror of the struct,
+    field for field; its size is checked against the source's at the first
+    load.
+
+    Calling it launches on ``device``'s current stream. Each of ``fields``
+    names a field of ``args``: a tensor (on ``device``; its address is
+    passed), None (a null pointer) or a number. The caller keeps the tensors
+    alive and gives them the dtypes and shapes the kernel reads. The struct
+    is read on the host, at the launch. ``launches`` counts launches."""
+
+    def __init__(self, source: Path, args: type[ctypes.Structure], prefix: str, name: str):
+        self.source, self.args, self.prefix = source, args, prefix
+        self.symbol = f"{prefix}_{name}"
+        self._names = frozenset(field for field, _ in args._fields_)
+        self.launches = 0
+
+    def load(self) -> CudaLibrary:
+        """Build (at first use) and load the library; returns the
+        :class:`CudaLibrary`."""
+        built = load_cuda_library(self.source)
+        lib = built.lib
+        fn = getattr(lib, self.symbol)
+        if fn.argtypes is None:
+            error_string = getattr(lib, f"{self.prefix}_error_string")
+            error_string.argtypes, error_string.restype = [ctypes.c_int32], ctypes.c_char_p
+            args_size = getattr(lib, f"{self.prefix}_args_size")
+            args_size.restype = ctypes.c_int32
+            if args_size() != ctypes.sizeof(self.args):
+                raise RuntimeError(f"{self.args.__module__}.{self.args.__name__} disagrees with the argument "
+                                   f"struct of {self.source.name}")
+            fn.argtypes, fn.restype = [ctypes.POINTER(self.args), ctypes.c_void_p], ctypes.c_int32
+        return built
+
+    def __call__(self, device, **fields) -> None:
+        import torch
+
+        args = self.args()
+        for name, value in fields.items():
+            if name not in self._names:
+                raise TypeError(f"no field {name!r} in the arguments of {self.symbol}")
+            if isinstance(value, torch.Tensor):
+                if value.device != device:
+                    raise ValueError(f"{name} is on {value.device}, the launch on {device}")
+                value = value.data_ptr()
+            setattr(args, name, value)
+        lib = self.load().lib
+        with torch.cuda.device(device):
+            err = getattr(lib, self.symbol)(ctypes.byref(args), torch.cuda.current_stream(device).cuda_stream)
+        if err != 0:
+            error_string = getattr(lib, f"{self.prefix}_error_string")
+            raise RuntimeError(f"{self.symbol} launch failed: cudaError {err} ({error_string(err).decode()})")
+        self.launches += 1

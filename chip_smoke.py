@@ -265,6 +265,19 @@ Phase 32 runs after phase 29:
     and bound, and both paths' peak memory; then the sum of the four
     bounces for a frame of eight chunks.
 
+Phase 33 runs after phase 32:
+
+33. The ``pt-tworooms-1080p64`` cell's path on its own tree (the two rooms,
+    ``make_tworooms(150_000)``, built natively at leaves of up to 56 as the
+    CLI's ``--scene tworooms`` builds them): the first 8-spp chunk of the
+    cell's frame (7 bounces, NEE at every vertex, no environment), whose
+    bounces 1-6 are shaded by ``_shade_kernel`` and ``_shade_plain`` and
+    whose compactions by ``_compact_kernel`` and ``_compact_plain``, every
+    lane and field equal (the MIS pdf included); then a whole 64-spp frame
+    with its launches counted from zero: 56 K2 closest-hit, 56 any-hit, 56
+    shading, 48 key and 48 permute passes. ``--tworooms-only`` runs it
+    alone.
+
 Phase 31 runs after phase 3:
 
 31. The camera-ray kernel (``csrc/camera.cu``) against the plain chain
@@ -1075,6 +1088,60 @@ def exact_differences(got, want, mask=None):
     return int((~same).sum())
 
 
+def generator_at(state):
+    """A generator on the card, set to ``state``."""
+    g = torch.Generator(device="cuda")
+    g.set_state(state)
+    return g
+
+
+def shade_both(state, kh, table, env, lights, g_state, kw):
+    """One bounce shaded by ``_shade_kernel`` and by ``_shade_plain``, each
+    from the generator state ``g_state``. Returns the lanes that differ, by
+    output (the state, the NEE segment on its candidates, the generator
+    after), the plain version's NEE query, the kernel launch's fields and
+    the two generators."""
+    from minipath_tpu_torch.render import shade
+    from minipath_tpu_torch.render import wavefront as W
+
+    launch, fields = shade.launch, {}
+
+    def recording(dev, **f):
+        fields.update(f)
+        return launch(dev, **f)
+
+    g_kernel, g_plain = generator_at(g_state), generator_at(g_state)
+    W.launch_shade = recording
+    try:
+        got, got_q = W._shade_kernel(state, kh, table, env, lights, g_kernel, **kw)
+    finally:
+        W.launch_shade = launch
+    want, want_q = W._shade_plain(state, kh, table, env, lights, g_plain, **kw)
+    diffs = {name: exact_differences(getattr(got, name), getattr(want, name))
+             for name in ("origin", "direction", "inv_direction", "throughput", "radiance", "active", "prev_pdf")
+             if getattr(want, name) is not None}
+    if (got_q is None) != (want_q is None):
+        raise AssertionError(f"bounce {kw['bounce']}: NEE query kernel {got_q is not None}, plain "
+                             f"{want_q is not None}")
+    if want_q is not None:
+        diffs["cand"] = exact_differences(got_q.cand, want_q.cand)
+        for name in ("origin", "segment", "wi", "light", "contrib"):
+            diffs[f"nee.{name}"] = exact_differences(getattr(got_q, name), getattr(want_q, name), want_q.cand)
+    diffs["generator"] = int(not torch.equal(g_kernel.get_state(), g_plain.get_state()))
+    return diffs, want_q, fields, g_kernel, g_plain
+
+
+def compact_differences(got, want):
+    """The lanes where two compacted states differ, by field (the MIS pdf
+    included), and whether one of them lacks the MIS pdf."""
+    from minipath_tpu_torch.render.wavefront import _PathState
+
+    diffs = {name: exact_differences(getattr(got, name), getattr(want, name))
+             for name in _PathState._fields if getattr(want, name) is not None}
+    diffs["prev_pdf is None"] = int((got.prev_pdf is None) != (want.prev_pdf is None))
+    return diffs
+
+
 def phase_shade(parts, device, smi):
     """Phase 29: the bounce-shading kernel (``csrc/shade.cu``) against its
     plain version on the main path's state at full width. One
@@ -1115,38 +1182,11 @@ def phase_shade(parts, device, smi):
     if [kw["bounce"] for *_, kw in captured] != list(range(PT_BOUNCES)):
         raise AssertionError(f"captured bounces {[kw['bounce'] for *_, kw in captured]}")
 
-    def generator(state):
-        g = torch.Generator(device=device)
-        g.set_state(state)
-        return g
-
     launch = shade.launch
     out, chunk = {}, dict(ms=0.0, draws_ms=0.0, plain_ms=0.0, bound_ms=0.0, nbytes=0)
     for state, kh, lights, g_state, kw in captured:
         b = kw["bounce"]
-        fields = {}
-
-        def recording(dev, **f):
-            fields.update(f)
-            return launch(dev, **f)
-
-        g_kernel, g_plain = generator(g_state), generator(g_state)
-        W.launch_shade = recording
-        try:
-            got, got_q = W._shade_kernel(state, kh, table, env, lights, g_kernel, **kw)
-        finally:
-            W.launch_shade = launch
-        want, want_q = W._shade_plain(state, kh, table, env, lights, g_plain, **kw)
-        diffs = {name: exact_differences(getattr(got, name), getattr(want, name))
-                 for name in ("origin", "direction", "inv_direction", "throughput", "radiance", "active", "prev_pdf")
-                 if getattr(want, name) is not None}
-        if (got_q is None) != (want_q is None):
-            raise AssertionError(f"bounce {b}: NEE query kernel {got_q is not None}, plain {want_q is not None}")
-        if want_q is not None:
-            diffs["cand"] = exact_differences(got_q.cand, want_q.cand)
-            for name in ("origin", "segment", "wi", "light", "contrib"):
-                diffs[f"nee.{name}"] = exact_differences(getattr(got_q, name), getattr(want_q, name), want_q.cand)
-        diffs["generator"] = int(not torch.equal(g_kernel.get_state(), g_plain.get_state()))
+        diffs, want_q, fields, g_kernel, g_plain = shade_both(state, kh, table, env, lights, g_state, kw)
         counts = shade_lanes(state, kh, table, kw, None if want_q is None else want_q.cand)
         nbytes = shade_bytes(counts, kw, state.prev_pdf is not None)
         bound_ms = nbytes / PEAK_HBM_BYTES * 1e3
@@ -1165,7 +1205,7 @@ def phase_shade(parts, device, smi):
         for key, value in (("ms", ms), ("draws_ms", draws_ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms),
                            ("nbytes", nbytes)):
             chunk[key] += value
-        del got, got_q, want, want_q, fields
+        del want_q, fields
     del captured
     # Every branch the main path's scene offers (the hall is closed: no
     # misses; its metal is glossy: no mirrors).
@@ -1270,9 +1310,7 @@ def phase_compact(parts, device, smi):
         finally:
             W.key_pass, W.permute_pass = passes["key"], passes["permute"]
         want, plain_peak = peak_above_input(lambda: W._compact_plain(state, fine))
-        diffs = {name: exact_differences(getattr(got, name), getattr(want, name))
-                 for name in W._PathState._fields if getattr(want, name) is not None}
-        diffs["prev_pdf is None"] = int((got.prev_pdf is None) != (want.prev_pdf is None))
+        diffs = compact_differences(got, want)
         lanes, nee = state.origin.shape[0], state.prev_pdf is not None
         live = int(state.active.sum())
         del got, want
@@ -1330,6 +1368,122 @@ def phase_compact(parts, device, smi):
                         path_bound_ms=frame["path_bound_ms"], path_gb=frame["path_nbytes"] / 1e9,
                         stage_ms={k: chunks * v for k, v in chunk_stages.items()})
     return out
+
+
+# Phase 33: the pt-tworooms-1080p64 cell's frame (benchmark/configs/
+# tworooms150k-pt.json): the two rooms as the CLI builds them, its camera, 7
+# bounces, NEE at every vertex, no environment.
+TWOROOMS_TRIANGLES, TWOROOMS_BOUNCES = 150_000, 7
+
+
+def tworooms_camera():
+    from minipath_tpu_torch import Camera
+
+    # In the dark room, facing the doorway (the cell's, sweep_pt19's).
+    return Camera().look_at((-10.0, 3.0, 0.0), (0.0, 1.5, 0.0)).f_number(8.0).sensor_width(36e-3)
+
+
+def phase_tworooms(device, smi):
+    """Phase 33: the pt-tworooms-1080p64 cell's path on the cell's own tree
+    (``make_tworooms(150_000)`` with ``tworooms_materials``, built natively
+    at leaves of up to 56 triangles, as ``--scene tworooms --integrator pt``
+    builds it). The first 8-spp chunk of the cell's frame (16,711,680 lanes)
+    keeps its bounces' shading inputs and the states entering its
+    compactions; at bounces 1-6 (compacted, NEE on each, roulette from 3)
+    ``_shade_kernel`` must agree with ``_shade_plain`` on every lane and
+    ``_compact_kernel`` with ``_compact_plain`` on every field, the MIS pdf
+    included. Then one whole 64-spp frame with the launches counted from
+    zero: K2 closest-hit and any-hit, the shading kernel 8 x 7 each, the
+    compaction's key and permute passes 8 x 6 each. Returns the frame's
+    launches by kernel."""
+    from minipath_tpu_torch.render import compact, kernels, shade
+    from minipath_tpu_torch.render import wavefront as W
+    from minipath_tpu_torch.scene.materials import Environment
+    from minipath_tpu_torch.scene.procedural import make_tworooms, tworooms_materials
+    from minipath_tpu_torch.scene.triangle_bvh import TriangleBvh
+
+    t0 = time.perf_counter()
+    mesh = make_tworooms(TWOROOMS_TRIANGLES)
+    ids, dicts = tworooms_materials(mesh)
+    bvh = TriangleBvh.build(mesh, materials=ids, use_native=True)
+    log("33 tworooms", f"{bvh.statistics()['triangles']} triangles, {int((ids == 3).sum())} emissive, stack "
+        f"{bvh.recommended_stack_size}, built natively in {time.perf_counter() - t0:.1f}s")
+    scene, table, lights, tracer, shadow = pt_parts(bvh, dicts, device)
+    sampler = tworooms_camera().build_sampler((PT_WIDTH, PT_HEIGHT), device)
+    env = Environment.none(device)
+
+    def frame(spp, seed):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        return W.render_frame_pt(
+            tracer, scene, table, sampler, gen, width=PT_WIDTH, height=PT_HEIGHT, spp=spp,
+            bounces=TWOROOMS_BOUNCES, env=env, samples_per_packet=SHADE_CHUNK, lights=lights, shadow_tracer=shadow,
+            nee_max_depth=None,
+        )
+
+    shaded, compacted = [], []
+    real_shade, real_compact = W._shade_kernel, W._compact
+
+    def capturing_shade(state, kh, materials, env_, lights_, generator, **kw):
+        shaded.append((state, kh, lights_, generator.get_state(), kw))
+        return real_shade(state, kh, materials, env_, lights_, generator, **kw)
+
+    def capturing_compact(state, fine_direction=True):
+        compacted.append((state, fine_direction))
+        return real_compact(state, fine_direction=fine_direction)
+
+    W._shade_kernel, W._compact = capturing_shade, capturing_compact
+    try:
+        frame(SHADE_CHUNK, 33)
+    finally:
+        W._shade_kernel, W._compact = real_shade, real_compact
+    if [kw["bounce"] for *_, kw in shaded] != list(range(TWOROOMS_BOUNCES)) or len(compacted) != TWOROOMS_BOUNCES - 1:
+        raise AssertionError(f"captured {len(shaded)} shadings and {len(compacted)} compactions")
+    taken = dict.fromkeys(("lambertian", "glossy", "emitter", "emitter_mis", "nee_candidates"), 0)
+    for state, kh, lights_, g_state, kw in shaded[1:]:
+        b = kw["bounce"]
+        if not kw["nee_here"] or kw["live"] is None:
+            raise AssertionError(f"bounce {b}: NEE {kw['nee_here']}, live count {kw['live']}")
+        diffs, want_q, _, _, _ = shade_both(state, kh, table, env, lights_, g_state, kw)
+        counts = shade_lanes(state, kh, table, kw, want_q.cand)
+        text = f"bounce {b} shading: {json.dumps(counts)} | lanes that differ {json.dumps(diffs)}"
+        if any(diffs.values()):
+            raise AssertionError(f"the shading kernel disagrees with its plain version on {smi}: {text}")
+        log("33 tworooms", text)
+        for k in taken:
+            taken[k] += counts[k]
+        del want_q
+    missing = [k for k, n in taken.items() if not n]
+    if missing:
+        raise AssertionError(f"branches bounces 1-6 of the chunk never took: {missing}")
+    for bounce, (state, fine) in enumerate(compacted, start=1):
+        diffs = compact_differences(W._compact_kernel(state, fine), W._compact_plain(state, fine))
+        text = (f"bounce {bounce} compaction: {state.origin.shape[0]} lanes, {int(state.active.sum())} live | "
+                f"fields that differ {json.dumps(diffs)}")
+        if state.prev_pdf is None or any(diffs.values()):
+            raise AssertionError(f"the compaction kernels disagree with the plain compaction on {smi}: {text}")
+        log("33 tworooms", text)
+    del shaded, compacted
+
+    for mode in kernels.trace_packets_pt.launches:
+        kernels.trace_packets_pt.launches[mode] = 0
+    shade.launch.launches = 0
+    compact.key_pass.launches = compact.permute_pass.launches = 0
+    torch.cuda.reset_peak_memory_stats(device)
+    img, seconds = timed(lambda: frame(PT_SPP, 34).cpu().numpy())
+    chunks = PT_SPP // SHADE_CHUNK
+    launches = {"K2 closest": kernels.trace_packets_pt.launches["closest"],
+                "K2 anyhit": kernels.trace_packets_pt.launches["anyhit"], "shade": shade.launch.launches,
+                "compact key": compact.key_pass.launches, "compact permute": compact.permute_pass.launches}
+    want = {"K2 closest": chunks * TWOROOMS_BOUNCES, "K2 anyhit": chunks * TWOROOMS_BOUNCES,
+            "shade": chunks * TWOROOMS_BOUNCES, "compact key": chunks * (TWOROOMS_BOUNCES - 1),
+            "compact permute": chunks * (TWOROOMS_BOUNCES - 1)}
+    if launches != want or not np.isfinite(img).all() or not img[..., :3].mean() > 0:
+        raise AssertionError(f"the cell's frame: launches {launches}, not {want}; image mean {img[..., :3].mean()}")
+    log("33 tworooms", f"a {PT_WIDTH}x{PT_HEIGHT} @ {PT_SPP} spp frame, {TWOROOMS_BOUNCES} bounces, NEE at every "
+        f"vertex, no environment: launches {json.dumps(launches)} | {seconds:.3f} s (warm, untimed by the cell's "
+        f"rules) | peak device memory {torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB | image mean "
+        f"{img[..., :3].mean():.5f}, all finite | {smi}")
+    return launches
 
 
 # Phase 31: the camera-ray kernel against the plain chain on the parity cell's
@@ -3440,6 +3594,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description="Smoke test of minipath_tpu_torch on one NVIDIA GPU.")
     parser.add_argument("--profile", type=Path, default=None, metavar="DIR",
                         help="also profile one warm path-traced frame on each layout and write the summaries to DIR")
+    parser.add_argument("--tworooms-only", action="store_true",
+                        help="run phase 33 alone (the pt-tworooms-1080p64 cell's path: the shading and compaction "
+                             "kernels against their plain versions, a frame's launches)")
     parser.add_argument("--kernels-only", action="store_true",
                         help="run phases 1, 2, 3, 31, 6, 29 and 10 alone (the traversal, camera and shading kernels "
                              "against their plain versions, with their times); prints neither the kernels line nor "
@@ -3447,6 +3604,10 @@ def main() -> int:
     args = parser.parse_args()
     smi = phase_device()
     phase_build()
+    if args.tworooms_only:
+        phase_tworooms(torch.device("cuda", 0), smi)
+        print("tworooms only: phase 33 passed", flush=True)
+        return 0
     from minipath_tpu_torch.scene.procedural import make_atrium
     from minipath_tpu_torch.scene.triangle_bvh import TriangleBvh
 
@@ -3492,6 +3653,7 @@ def main() -> int:
     k2_launches, shade_launches, compact_launches, ref64, pt_warm = phase_pt_main_path(parts, device, smi)
     shaded = phase_shade(parts, device, smi)
     compacted = phase_compact(parts, device, smi)
+    tworooms_launches = phase_tworooms(device, smi)
     pt_mean = float(ref64[..., :3].mean())
     shadow_sort_launches = phase_shadow_sort(parts, sets, pt_bvh, device, smi)
     phase_card_vs_cpu(pt_bvh, dicts, device)
@@ -3516,6 +3678,7 @@ def main() -> int:
         profile_pt_frame(pt_parts(pt_bvh, dicts, device, quantized=True), device, args.profile, name="pt_q")
     by_path = phase_sharded(bvh, big, parts, ref64, pt_warm, device, smi)
     by_path["q16-600k-1080p64 render()"] = q16_cell
+    by_path["pt-tworooms-1080p64 render_frame_pt()"] = tworooms_launches
     by_path["adaptive pt"] = phase_adaptive(parts, pt_mean, device, smi)
     by_path["two-level pt"] = phase_twolevel(pt_bvh, parts, ref64, pt_warm, device, smi)
     del big, pt_bvh, parts, ref64

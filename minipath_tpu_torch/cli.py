@@ -6,13 +6,18 @@ Port of ``minipath_tpu/cli.py``: the reference's camera recipe (looking from
 Two integrators: ``--integrator normal``, the reference-parity grayscale
 ``|d.n|`` through ``render()`` with a progress bar driven by the
 finished-tile callback, and ``--integrator pt``, the wavefront path tracer
-under a sky environment (with ``--nee``, light sampling of the emissive
-triangles). ``--device`` picks the torch device (default ``cuda``); there is
-no fallback to another device.
+under a sky environment, or none for ``tworooms`` (with ``--nee``, light
+sampling of the emissive triangles). ``--device`` picks the torch device
+(default ``cuda``); there is no fallback to another device.
 
-Scenes are an OBJ file (``--obj``), or procedural: ``sphere-mesh``, or the
+Scenes are an OBJ file (``--obj``), or procedural: ``sphere-mesh``, the
 benchmark ``atrium`` (path traced with its benchmark materials, whose
-ceiling panels emit). Without ``--obj`` the ``obj`` scene renders the
+ceiling panels emit, under the sky), or ``tworooms`` (``make_tworooms``: a
+dark room lit through a doorway by a recessed ceiling panel in the next
+room, path traced with ``tworooms_materials`` and no environment, as
+``--scene tworooms --integrator pt --nee --bounces 7 --camera-from -10 3 0
+--camera-to 0 1.5 0 --f-number 8`` renders it; the default camera lies
+outside its shell). Without ``--obj`` the ``obj`` scene renders the
 procedural sphere; OBJ and sphere scenes are path traced in grey.
 
 Path-traced frames can be filtered before they are saved (``--denoise``:
@@ -77,7 +82,10 @@ def build_parser() -> argparse.ArgumentParser:
         description="minipath renderer on PyTorch/CUDA.",
     )
     p.add_argument("--obj", default=None, help="OBJ file to render (default: a procedural sphere)")
-    p.add_argument("--scene", choices=["obj", "sphere-mesh", "atrium"], default="obj", help="scene source")
+    p.add_argument("--scene", choices=["obj", "sphere-mesh", "atrium", "tworooms"], default="obj",
+                   help="scene source; 'tworooms' is lit only through a doorway and has no environment: render it "
+                   "from inside, e.g. --integrator pt --nee --bounces 7 --camera-from -10 3 0 --camera-to 0 1.5 0 "
+                   "--f-number 8")
     p.add_argument("--width", type=int, default=2048)
     p.add_argument("--height", type=int, default=1536)
     p.add_argument("--spp", type=int, default=100, help="samples per pixel")
@@ -94,8 +102,8 @@ def build_parser() -> argparse.ArgumentParser:
         "--integrator",
         choices=["normal", "pt"],
         default="normal",
-        help="'normal' = reference-parity |d.n| shading; 'pt' = path tracing with a sky environment "
-        "(OBJ scenes get a default grey material)",
+        help="'normal' = reference-parity |d.n| shading; 'pt' = path tracing with a sky environment, none "
+        "for --scene tworooms (OBJ scenes get a default grey material)",
     )
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda", help="torch device to render on")
     p.add_argument("--bounces", type=int, default=6, help="path-tracer bounce budget")
@@ -132,18 +140,22 @@ def build_parser() -> argparse.ArgumentParser:
 
 def load_scene(args):
     """``(bvh, material dicts or None)`` for the chosen scene, its layout
-    ``args.layout``. The atrium is built by the native C++ code
-    (``scene/bvh/native.py``), which raises where it cannot be compiled."""
+    ``args.layout``. The atrium and the two rooms are built by the native
+    C++ code (``scene/bvh/native.py``), which raises where it cannot be
+    compiled."""
     from minipath_tpu_torch.scene import procedural
     from minipath_tpu_torch.scene.triangle_bvh import TriangleBvh
 
     layout = args.layout
-    if args.scene == "atrium":
-        mesh = procedural.make_atrium()
+    # Each procedural scene with its material set (emitters, so --nee has
+    # lights), which the path tracer takes.
+    generated = {"atrium": (procedural.make_atrium, procedural.atrium_materials),
+                 "tworooms": (procedural.make_tworooms, procedural.tworooms_materials)}
+    if args.scene in generated:
+        make, materials = generated[args.scene]
+        mesh = make()
         if args.integrator == "pt":
-            # The benchmark material set: emissive ceiling panels, metal and
-            # glass props, so --nee has lights.
-            ids, dicts = procedural.atrium_materials(mesh)
+            ids, dicts = materials(mesh)
             return TriangleBvh.build(mesh, materials=ids, use_native=True, layout=layout), dicts
         return TriangleBvh.build(mesh, use_native=True, layout=layout), None
     if args.scene == "obj" and args.obj:
@@ -267,8 +279,9 @@ def _where(args, mesh) -> str:
 
 
 def _render_pt(args, bvh, camera, material_dicts, mesh=None) -> int:
-    """Path-traced whole frame under a sky environment, gamma 2.2; sharded
-    over ``mesh`` when one is given, else adaptive under ``--adaptive``."""
+    """Path-traced whole frame, gamma 2.2: under a sky environment, or none
+    for the two rooms, whose only light is their panel; sharded over
+    ``mesh`` when one is given, else adaptive under ``--adaptive``."""
     import numpy as np
     import torch
 
@@ -295,6 +308,7 @@ def _render_pt(args, bvh, camera, material_dicts, mesh=None) -> int:
         print("--nee-depth has no effect: requires --nee and an emissive scene; rendering without light "
               "sampling", file=sys.stderr)
     sampler = camera.build_sampler((args.width, args.height), device)
+    env = Environment.none(device) if args.scene == "tworooms" else Environment.sky(device)
     generator = torch.Generator(device=device).manual_seed(args.seed)
     common = dict(
         bounces=args.bounces,
@@ -315,7 +329,7 @@ def _render_pt(args, bvh, camera, material_dicts, mesh=None) -> int:
             print("--denoise with --adaptive uses the fixed-sigma filter (no variance buffer)", file=sys.stderr)
         img = render_frame_pt_adaptive(
             tracer, scene, table, sampler, generator, width=args.width, height=args.height, spp=args.spp,
-            env=Environment.sky(device), pilot_spp=ADAPTIVE_PILOT, samples_per_packet=ADAPTIVE_CHUNK,
+            env=env, pilot_spp=ADAPTIVE_PILOT, samples_per_packet=ADAPTIVE_CHUNK,
             stratify=not args.iid, **common,
         )
     else:
@@ -328,7 +342,7 @@ def _render_pt(args, bvh, camera, material_dicts, mesh=None) -> int:
             width=args.width,
             height=args.height,
             spp=args.spp,
-            env=Environment.sky(device),
+            env=env,
             samples_per_packet=min(8, args.spp),
             rr_floor=args.rr_floor,
             min_live_frac=args.tail_cut,

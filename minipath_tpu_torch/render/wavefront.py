@@ -1026,13 +1026,19 @@ def _pt_trace(
             )
         if query is not None:
             with span("pt.shadow_trace"):
-                o_s, s_s, n_cand, order = _shadow_batch(
-                    query.cand, query.origin, query.segment, query.wi, query.light, shadow_sort
-                )
+                # The batch's sort, gathers and scatter back, around the
+                # any-hit trace.
+                with span("pt.shadow_batch"):
+                    o_s, s_s, n_cand, order = _shadow_batch(
+                        query.cand, query.origin, query.segment, query.wi, query.light, shadow_sort
+                    )
                 count("pt.shadow_rays", n_cand)
                 occ_s = shadow_tracer(tracer_state, o_s, s_s, n_cand)
-                occluded = torch.empty_like(occ_s)
-                occluded[order] = occ_s
+                with span("pt.shadow_batch"):
+                    occluded = torch.empty_like(occ_s)
+                    occluded[order] = occ_s
+                if recording():
+                    count("pt.shadow_occluded", (query.cand & occluded).sum(dtype=torch.int32))
             with span("pt.shade"):
                 # The light that reached the vertex, added last, as the
                 # estimator sums it.

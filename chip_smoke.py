@@ -275,8 +275,20 @@ Phase 33 runs after phase 32:
     whose compactions by ``_compact_kernel`` and ``_compact_plain``, every
     lane and field equal (the MIS pdf included); then a whole 64-spp frame
     with its launches counted from zero: 56 K2 closest-hit, 56 any-hit, 56
-    shading, 48 key and 48 permute passes. ``--tworooms-only`` runs it
-    alone.
+    shading, 48 key and 48 permute passes, 56 of each of the shadow
+    batch's four. ``--tworooms-only`` runs it alone.
+
+Phase 34 runs after phase 33:
+
+34. The NEE shadow batch's kernels (``csrc/shadow.cu``) against the plain
+    shadow batch at full width: the batches of bounces 0-6 of the first
+    8-spp chunk of a pt-tworooms-1080p64 frame (on the cell's tree) and of
+    bounce 0 of a pt-1080p64-nee1 chunk (16,711,680 lanes each), through
+    ``_shadow_light_kernel`` and ``_shadow_light_plain``: the key, the live
+    packets' rows, the radiance and the counts equal on every lane. ptxas'
+    report; each batch's candidates' share, each route's time (CUDA
+    events), K2 any-hit's, the sort's share, each pass's time against its
+    bound by bytes (``shadow_bytes``); each cell's frame of 8 chunks.
 
 Phase 31 runs after phase 3:
 
@@ -291,10 +303,10 @@ Phase 31 runs after phase 3:
     ``render()`` frame at 1920x1080 @ 64 spp in tile mode with a callback:
     16 camera launches, ``camera.kernel_lanes`` 133,693,440.
 
-``python3 chip_smoke.py --kernels-only`` runs phases 1, 2, 3, 31, 6, 29, 32
-and 10 alone: the traversal, camera, shading and compaction kernels against
-their plain versions, with their times, bounds and requested bytes (about
-three minutes, most of it the three scene builds).
+``python3 chip_smoke.py --kernels-only`` runs phases 1, 2, 3, 31, 6, 29, 32,
+34 and 10 alone: the traversal, camera, shading, compaction and shadow-batch
+kernels against their plain versions, with their times, bounds and requested
+bytes (about four minutes, most of it the scene builds).
 
 ``python3 chip_smoke.py --profile DIR`` also writes a ``torch.profiler``
 summary of one warm path-traced frame to DIR, over the f32 layout (after
@@ -452,15 +464,15 @@ def phase_device():
 
 
 def phase_build():
-    """The six sources at once, one nvcc each."""
+    """The seven sources at once, one nvcc each."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from minipath_tpu_torch.render import camera_rays, compact, kernels, kernels_q, shade
+    from minipath_tpu_torch.render import camera_rays, compact, kernels, kernels_q, shade, shadow
     from minipath_tpu_torch.utils import calibrate
 
     t0 = time.perf_counter()
     loaders = (kernels.load_library, kernels_q.load_library, calibrate.load_library, shade.load_library,
-               camera_rays.load_library, compact.load_library)
+               camera_rays.load_library, compact.load_library, shadow.load_library)
     with ThreadPoolExecutor(len(loaders)) as pool:
         libs = [f.result() for f in [pool.submit(load) for load in loaders]]
     from minipath_tpu_torch.render.kernels import STACK_CAPACITY
@@ -489,7 +501,11 @@ def phase_build():
     log("2 build", f"compact.cu: {json.dumps(usage)}")
     if len(usage) != 2 or any(u["spill_stores"] or u["spill_loads"] for u in usage):
         raise AssertionError(f"compact.cu: expected two kernels without spills, got {usage}")
-    log("2 build", f"all six built and loaded in {time.perf_counter() - t0:.2f}s")
+    usage = ptxas_usage(libs[6].log)
+    log("2 build", f"shadow.cu: {json.dumps(usage)}")
+    if len(usage) != 4 or any(u["spill_stores"] or u["spill_loads"] for u in usage):
+        raise AssertionError(f"shadow.cu: expected four kernels without spills, got {usage}")
+    log("2 build", f"all seven built and loaded in {time.perf_counter() - t0:.2f}s")
     log("2 build", f"chain kernels' SASS: {json.dumps(chain_sass_counts(libs[2].path))}")
 
 
@@ -1383,20 +1399,11 @@ def tworooms_camera():
     return Camera().look_at((-10.0, 3.0, 0.0), (0.0, 1.5, 0.0)).f_number(8.0).sensor_width(36e-3)
 
 
-def phase_tworooms(device, smi):
-    """Phase 33: the pt-tworooms-1080p64 cell's path on the cell's own tree
-    (``make_tworooms(150_000)`` with ``tworooms_materials``, built natively
-    at leaves of up to 56 triangles, as ``--scene tworooms --integrator pt``
-    builds it). The first 8-spp chunk of the cell's frame (16,711,680 lanes)
-    keeps its bounces' shading inputs and the states entering its
-    compactions; at bounces 1-6 (compacted, NEE on each, roulette from 3)
-    ``_shade_kernel`` must agree with ``_shade_plain`` on every lane and
-    ``_compact_kernel`` with ``_compact_plain`` on every field, the MIS pdf
-    included. Then one whole 64-spp frame with the launches counted from
-    zero: K2 closest-hit and any-hit, the shading kernel 8 x 7 each, the
-    compaction's key and permute passes 8 x 6 each. Returns the frame's
-    launches by kernel."""
-    from minipath_tpu_torch.render import compact, kernels, shade
+def tworooms_cell(device, phase):
+    """The pt-tworooms-1080p64 cell's program state: the two rooms built
+    natively as ``--scene tworooms`` builds them, ``pt_parts`` over them, no
+    environment, and ``frame(spp, seed)``, the cell's frame of that many
+    samples in 8-spp chunks. Returns ``(parts, env, frame)``."""
     from minipath_tpu_torch.render import wavefront as W
     from minipath_tpu_torch.scene.materials import Environment
     from minipath_tpu_torch.scene.procedural import make_tworooms, tworooms_materials
@@ -1406,9 +1413,10 @@ def phase_tworooms(device, smi):
     mesh = make_tworooms(TWOROOMS_TRIANGLES)
     ids, dicts = tworooms_materials(mesh)
     bvh = TriangleBvh.build(mesh, materials=ids, use_native=True)
-    log("33 tworooms", f"{bvh.statistics()['triangles']} triangles, {int((ids == 3).sum())} emissive, stack "
+    log(phase, f"{bvh.statistics()['triangles']} triangles, {int((ids == 3).sum())} emissive, stack "
         f"{bvh.recommended_stack_size}, built natively in {time.perf_counter() - t0:.1f}s")
-    scene, table, lights, tracer, shadow = pt_parts(bvh, dicts, device)
+    parts = pt_parts(bvh, dicts, device)
+    scene, table, lights, tracer, shadow = parts
     sampler = tworooms_camera().build_sampler((PT_WIDTH, PT_HEIGHT), device)
     env = Environment.none(device)
 
@@ -1419,6 +1427,28 @@ def phase_tworooms(device, smi):
             bounces=TWOROOMS_BOUNCES, env=env, samples_per_packet=SHADE_CHUNK, lights=lights, shadow_tracer=shadow,
             nee_max_depth=None,
         )
+
+    return parts, env, frame
+
+
+def phase_tworooms(device, smi):
+    """Phase 33: the pt-tworooms-1080p64 cell's path on the cell's own tree
+    (``make_tworooms(150_000)`` with ``tworooms_materials``, built natively
+    at leaves of up to 56 triangles, as ``--scene tworooms --integrator pt``
+    builds it). The first 8-spp chunk of the cell's frame (16,711,680 lanes)
+    keeps its bounces' shading inputs and the states entering its
+    compactions; at bounces 1-6 (compacted, NEE on each, roulette from 3)
+    ``_shade_kernel`` must agree with ``_shade_plain`` on every lane and
+    ``_compact_kernel`` with ``_compact_plain`` on every field, the MIS pdf
+    included. Then one whole 64-spp frame with the launches counted from
+    zero: K2 closest-hit and any-hit, the shading kernel and the shadow
+    batch's four passes 8 x 7 each, the compaction's key and permute passes
+    8 x 6 each. Returns the frame's launches by kernel."""
+    from minipath_tpu_torch.render import compact, kernels, shade
+    from minipath_tpu_torch.render import shadow as shadow_passes
+    from minipath_tpu_torch.render import wavefront as W
+
+    (_, table, _, _, _), env, frame = tworooms_cell(device, "33 tworooms")
 
     shaded, compacted = [], []
     real_shade, real_compact = W._shade_kernel, W._compact
@@ -1468,15 +1498,19 @@ def phase_tworooms(device, smi):
         kernels.trace_packets_pt.launches[mode] = 0
     shade.launch.launches = 0
     compact.key_pass.launches = compact.permute_pass.launches = 0
+    for name in SHADOW_PASSES:
+        getattr(shadow_passes, f"{name}_pass").launches = 0
     torch.cuda.reset_peak_memory_stats(device)
     img, seconds = timed(lambda: frame(PT_SPP, 34).cpu().numpy())
     chunks = PT_SPP // SHADE_CHUNK
     launches = {"K2 closest": kernels.trace_packets_pt.launches["closest"],
                 "K2 anyhit": kernels.trace_packets_pt.launches["anyhit"], "shade": shade.launch.launches,
-                "compact key": compact.key_pass.launches, "compact permute": compact.permute_pass.launches}
+                "compact key": compact.key_pass.launches, "compact permute": compact.permute_pass.launches,
+                **{f"shadow {name}": getattr(shadow_passes, f"{name}_pass").launches for name in SHADOW_PASSES}}
     want = {"K2 closest": chunks * TWOROOMS_BOUNCES, "K2 anyhit": chunks * TWOROOMS_BOUNCES,
             "shade": chunks * TWOROOMS_BOUNCES, "compact key": chunks * (TWOROOMS_BOUNCES - 1),
-            "compact permute": chunks * (TWOROOMS_BOUNCES - 1)}
+            "compact permute": chunks * (TWOROOMS_BOUNCES - 1),
+            **{f"shadow {name}": chunks * TWOROOMS_BOUNCES for name in SHADOW_PASSES}}
     if launches != want or not np.isfinite(img).all() or not img[..., :3].mean() > 0:
         raise AssertionError(f"the cell's frame: launches {launches}, not {want}; image mean {img[..., :3].mean()}")
     log("33 tworooms", f"a {PT_WIDTH}x{PT_HEIGHT} @ {PT_SPP} spp frame, {TWOROOMS_BOUNCES} bounces, NEE at every "
@@ -1484,6 +1518,176 @@ def phase_tworooms(device, smi):
         f"rules) | peak device memory {torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB | image mean "
         f"{img[..., :3].mean():.5f}, all finite | {smi}")
     return launches
+
+
+# Phase 34: the NEE shadow batch's kernels (csrc/shadow.cu) against the plain
+# shadow batch on the cells' chunks. The least bytes of each stage's work:
+# every lane's box (its flag, 1 B), key (flag and wi read, the key written:
+# 17 B) and sort (COMPACT_STAGE_BYTES' count, 108 B); a candidate's origin
+# read by the box and by the key (12 B each; a non-candidate's point is 0),
+# its pack (its index read, its origin and segment gathered, its 36-B row
+# written: 68 B) and resolve (its index and answer: 12 B); a lit candidate's
+# contribution and radiance read and its radiance written (36 B).
+SHADOW_PASSES = ("box", "key", "pack", "resolve")
+SHADOW_LANE_BYTES = {"box": 1, "key": 1 + 12 + 4, "sort": COMPACT_STAGE_BYTES["sort"]}
+SHADOW_CAND_BYTES = {"box": 12, "key": 12, "pack": 8 + 24 + 36, "resolve": 8 + 4}
+SHADOW_LIT_BYTES = 12 + 12 + 12
+
+
+def shadow_bytes(lanes, cands, lit):
+    """The least bytes of each stage of one shadow batch, by stage."""
+    out = dict.fromkeys(("box", "key", "sort", "pack", "resolve"), 0)
+    for stage, b in SHADOW_LANE_BYTES.items():
+        out[stage] += lanes * b
+    for stage, b in SHADOW_CAND_BYTES.items():
+        out[stage] += cands * b
+    out["resolve"] += lit * SHADOW_LIT_BYTES
+    return out
+
+
+def capture_shadow_batches(frame):
+    """``(tracer_state, query, radiance, shadow_tracer)`` of every NEE
+    shadow batch ``frame()`` makes, the radiance as the batch met it."""
+    from minipath_tpu_torch.render import wavefront as W
+
+    seen, real = [], W._shadow_light
+
+    def capturing(tracer_state, query, radiance, shadow_tracer, shadow_sort):
+        seen.append((tracer_state, query, radiance.clone(), shadow_tracer))
+        return real(tracer_state, query, radiance, shadow_tracer, shadow_sort)
+
+    W._shadow_light = capturing
+    try:
+        frame()
+    finally:
+        W._shadow_light = real
+    return seen
+
+
+def shadow_both(name, batch, device, smi):
+    """One shadow batch through both routes: every lane of the key, the live
+    packets' rows and the radiance compared, the counts too; then each
+    route's time, K2 any-hit's on the same rows, each pass's and the sort's,
+    against the bound by bytes. Returns the kernels line's result."""
+    from minipath_tpu_torch.render import shadow as shadow_passes
+    from minipath_tpu_torch.render import wavefront as W
+    from minipath_tpu_torch.utils.roofline import PEAK_HBM_BYTES
+
+    state, query, radiance, shadow = batch
+    passes = {p: getattr(shadow_passes, f"{p}_pass") for p in SHADOW_PASSES}
+    fields = {}
+
+    def recording(p):
+        def launch(dev, **f):
+            fields[p] = f
+            return passes[p](dev, **f)
+        return launch
+
+    for p in SHADOW_PASSES:
+        setattr(shadow_passes, f"{p}_pass", recording(p))
+    try:
+        got = W._shadow_light_kernel(state, query, radiance.clone(), shadow)
+    finally:
+        for p in SHADOW_PASSES:
+            setattr(shadow_passes, f"{p}_pass", passes[p])
+    cand, P = query.cand, shadow.packet_size
+    o_s, s_s, n_cand, order = W._shadow_batch(cand, query.origin, query.segment, query.wi, query.light, "pos")
+    rays, live, _ = W._pack_rays9(P, n_cand, o_s, s_s,
+                                  torch.where(s_s == 0.0, torch.full_like(s_s, torch.inf), 1.0 / s_s))
+    occluded = torch.empty_like(cand)
+    occluded[order] = shadow(state, o_s, s_s, n_cand)
+    want = W._shadow_light_plain(state, query, radiance.clone(), shadow, "pos")
+    counts, live = fields["box"]["counts"], int(live)
+    lanes, cands, blocked = cand.shape[0], int(n_cand), int((cand & occluded).sum())
+
+    def rows(r9):
+        return r9[:live].transpose(1, 2).reshape(-1, 9)
+
+    diffs = {
+        "key": exact_differences(fields["key"]["key"], W.shadow_sort_key(cand, query.origin, query.wi, query.light)),
+        "rows": exact_differences(rows(fields["pack"]["rays"]), rows(rays)),
+        "radiance": exact_differences(got, want),
+        "counts": int([int(c) for c in counts[:3]] != [cands, live, blocked]),
+    }
+    del got, want, o_s, s_s, order, rays, occluded
+    scratch = radiance.clone()
+    route_ms = cuda_ms(lambda: W._shadow_light_kernel(state, query, scratch, shadow), 10)
+    plain_ms = cuda_ms(lambda: W._shadow_light_plain(state, query, radiance, shadow, "pos"), 3)
+    k2_ms = cuda_ms(lambda: shadow.packed(state, fields["pack"]["rays"], counts[1:2]), 10)
+    box_counts = counts.clone()
+
+    def box():
+        # A fresh count of finished blocks, or no block would finish last.
+        box_counts[3].zero_()
+        passes["box"](device, **{**fields["box"], "counts": box_counts})
+
+    stage_ms = {
+        "box": cuda_ms(box, 10),
+        "key": cuda_ms(lambda: passes["key"](device, **fields["key"]), 10),
+        "sort": cuda_ms(lambda: torch.sort(fields["key"]["key"]), 10),
+        "pack": cuda_ms(lambda: passes["pack"](device, **fields["pack"]), 10),
+        "resolve": cuda_ms(lambda: passes["resolve"](device, **{**fields["resolve"], "radiance": scratch}), 10),
+    }
+    nbytes = shadow_bytes(lanes, cands, cands - blocked)
+    bound = {stage: b / PEAK_HBM_BYTES * 1e3 for stage, b in nbytes.items()}
+    ms = sum(stage_ms[p] for p in SHADOW_PASSES)
+    bound_ms = sum(bound[p] for p in SHADOW_PASSES)
+    batch_ms, plain_batch_ms = route_ms - k2_ms, plain_ms - k2_ms
+    path_bound_ms = sum(bound.values())
+    stages = " | ".join(f"{stage} {t:.4f} ms (bound {bound[stage]:.4f}: {100 * bound[stage] / t:.1f}%)"
+                        for stage, t in stage_ms.items())
+    text = (f"{name}: {lanes} lanes, {cands} candidates ({100 * cands / lanes:.2f}%), {cands - blocked} lit, "
+            f"{live} live packets | lanes that differ {json.dumps(diffs)} | the kernel route {route_ms:.4f} ms, "
+            f"the plain route {plain_ms:.4f} ms, K2 any-hit {k2_ms:.4f} ms of each | the batch without K2: kernels "
+            f"{batch_ms:.4f} ms (the sort {100 * stage_ms['sort'] / batch_ms:.1f}% of it), bound {path_bound_ms:.4f} "
+            f"ms by bytes ({sum(nbytes.values()) / 1e9:.3f} GB): {100 * path_bound_ms / batch_ms:.1f}%; plain "
+            f"{plain_batch_ms:.3f} ms | the four passes {ms:.4f} ms, bound {bound_ms:.4f} ms: "
+            f"{100 * bound_ms / ms:.1f}% | {stages}")
+    if any(diffs.values()):
+        raise AssertionError(f"the shadow batch's kernels disagree with the plain shadow batch on {smi}: {text}")
+    log("34 shadow", text)
+    return dict(ms=ms, plain_ms=plain_batch_ms, err=0.0, bound_ms=bound_ms, bound_by="bytes", path_ms=batch_ms,
+                path_bound_ms=path_bound_ms, route_ms=route_ms, plain_route_ms=plain_ms, k2_ms=k2_ms,
+                stage_ms=stage_ms, stage_bound_ms=bound, candidates_pct=100 * cands / lanes)
+
+
+def phase_shadow(parts, device, smi):
+    """Phase 34: the NEE shadow batch's kernels (``csrc/shadow.cu``) against
+    the plain shadow batch at full width: the batches of bounces 0-6 of the
+    first 8-spp chunk of a pt-tworooms-1080p64 frame (NEE at every vertex,
+    on the cell's own tree) and of bounce 0 of a pt-1080p64-nee1 chunk
+    (16,711,680 lanes each), each through ``_shadow_light_kernel`` and
+    ``_shadow_light_plain``: the key, the live packets' rows, the radiance and
+    the counts equal on every lane. ptxas' report; for each batch the
+    candidates' share, each route's time, K2 any-hit's, the sort's share,
+    each pass's time against its bound by bytes; then each cell's frame (8
+    chunks). Returns the kernels line's results, by batch and by frame."""
+    from minipath_tpu_torch.render import shadow as shadow_passes
+
+    log("34 shadow", f"shadow.cu: {json.dumps(ptxas_usage(shadow_passes.load_library().log))}")
+    chunks = PT_SPP // SHADE_CHUNK
+    out, frames = {}, {}
+    _, _, frame = tworooms_cell(device, "34 shadow")
+    cells = (("pt-tworooms-1080p64", lambda: frame(SHADE_CHUNK, 34)),
+             ("pt-1080p64-nee1", lambda: render_pt(parts, device, PT_WIDTH, PT_HEIGHT, SHADE_CHUNK, 1, SHADE_CHUNK,
+                                                  seed=34)))
+    for cell, make in cells:
+        batches = capture_shadow_batches(make)
+        results = [shadow_both(f"{cell} bounce {b}", batch, device, smi) for b, batch in enumerate(batches)]
+        del batches
+        for b, r in enumerate(results):
+            out[f"{cell} bounce {b}"] = r
+        frames[cell] = {k: chunks * sum(r[k] for r in results)
+                        for k in ("ms", "plain_ms", "bound_ms", "path_ms", "path_bound_ms", "route_ms",
+                                  "plain_route_ms", "k2_ms")}
+        f = frames[cell]
+        log("34 shadow", f"{cell}, a frame of {chunks} chunks ({chunks * len(results)} batches): the kernel route "
+            f"{f['route_ms']:.2f} ms, the plain route {f['plain_route_ms']:.2f} ms, K2 any-hit {f['k2_ms']:.2f} ms "
+            f"of each | the batch without K2 {f['path_ms']:.2f} ms against {f['plain_ms']:.2f} ms, bound "
+            f"{f['path_bound_ms']:.2f} ms: {100 * f['path_bound_ms'] / f['path_ms']:.1f}% | the four passes "
+            f"{f['ms']:.2f} ms, bound {f['bound_ms']:.2f} ms: {100 * f['bound_ms'] / f['ms']:.1f}% | {smi}")
+    out.update({f"{cell} frame": dict(f, err=0.0, bound_by="bytes") for cell, f in frames.items()})
+    return out
 
 
 # Phase 31: the camera-ray kernel against the plain chain on the parity cell's
@@ -3598,9 +3802,9 @@ def main() -> int:
                         help="run phase 33 alone (the pt-tworooms-1080p64 cell's path: the shading and compaction "
                              "kernels against their plain versions, a frame's launches)")
     parser.add_argument("--kernels-only", action="store_true",
-                        help="run phases 1, 2, 3, 31, 6, 29 and 10 alone (the traversal, camera and shading kernels "
-                             "against their plain versions, with their times); prints neither the kernels line nor "
-                             "the last line")
+                        help="run phases 1, 2, 3, 31, 6, 29, 32, 34 and 10 alone (the traversal, camera, shading, "
+                             "compaction and shadow-batch kernels against their plain versions, with their times); "
+                             "prints neither the kernels line nor the last line")
     args = parser.parse_args()
     smi = phase_device()
     phase_build()
@@ -3636,8 +3840,9 @@ def main() -> int:
         _, sets = phase_k2(pt_bvh, parts, device)
         phase_shade(parts, device, smi)
         phase_compact(parts, device, smi)
+        phase_shadow(parts, device, smi)
         phase_k3(build_big_atrium(device), pt_bvh, parts[0], sets, device)
-        print("kernels only: phases 1, 2, 3, 31, 6, 29, 32 and 10 passed", flush=True)
+        print("kernels only: phases 1, 2, 3, 31, 6, 29, 32, 34 and 10 passed", flush=True)
         return 0
     # The CLI's tree (and phase 15's), and the bench's.
     cli_tree = native_tree()
@@ -3654,6 +3859,7 @@ def main() -> int:
     shaded = phase_shade(parts, device, smi)
     compacted = phase_compact(parts, device, smi)
     tworooms_launches = phase_tworooms(device, smi)
+    shadowed = phase_shadow(parts, device, smi)
     pt_mean = float(ref64[..., :3].mean())
     shadow_sort_launches = phase_shadow_sort(parts, sets, pt_bvh, device, smi)
     phase_card_vs_cpu(pt_bvh, dicts, device)
@@ -3738,6 +3944,10 @@ def main() -> int:
         # Port only: the JAX package leaves the key and the gather to XLA.
         entry("compaction", "minipath_tpu_torch/csrc/compact.cu", None, compact_launches, compacted, "bounce 1",
               frame=compacted["frame"], by_bounce={k: v for k, v in compacted.items() if k != "frame"}),
+        # Port only: the JAX package leaves the shadow batch's key, gathers
+        # and scatter to XLA.
+        entry("shadow_batch", "minipath_tpu_torch/csrc/shadow.cu", None, tworooms_launches["shadow box"], shadowed,
+              "pt-tworooms-1080p64 bounce 1", by_batch=shadowed),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -35,22 +35,17 @@
 // morton, where morton interleaves the lane's cell of a 16^3 grid over the
 // origins' bounding box (the caller's torch amin and amax, NaN propagated)
 // and dbin is one of 96 direction bins (6 dominant-axis faces x 4 x 4
-// quantized minor components) or one of 8 octants. Every float step is the
-// plain version's, in its order, rounded as PyTorch's CUDA kernels round it:
-// `c / t` for a Python number c is `(1 / t) * c`, 1 / t an IEEE division;
-// clamp passes NaN through; a float-to-int32 cast truncates (and sends NaN
-// to 0). The library is built with -fmad=false, so nothing fuses.
+// quantized minor components) or one of 8 octants; both come from
+// sort_key.cuh, which the NEE shadow batch's key pass (shadow.cu) shares.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "sort_key.cuh"
+
 #define MP_COMPACT_BLOCK 256
 
 namespace {
-
-// float32 as PyTorch rounds the plain version's Python doubles.
-constexpr float MIN_EXTENT = (float)1e-6;  // _position_cells' clamp of the box
-constexpr float MIN_MAJOR = (float)1e-9;   // _direction_bin's clamp of |major|
 
 struct CompactArgs {
   int64_t n;
@@ -91,27 +86,6 @@ struct CompactArgs {
   float* o_prev_pdf;  // null without NEE
 };
 
-__device__ __forceinline__ float clamp_min(float v, float lo) { return isnan(v) ? v : fmaxf(v, lo); }
-__device__ __forceinline__ float clamp(float v, float lo, float hi) {
-  return isnan(v) ? v : fminf(fmaxf(v, lo), hi);
-}
-__device__ __forceinline__ int clamp_int(int v, int lo, int hi) { return min(max(v, lo), hi); }
-
-// wavefront.py::_direction_bin.
-__device__ __forceinline__ int direction_bin(float x, float y, float z) {
-  const float axv = fabsf(x), ayv = fabsf(y), azv = fabsf(z);
-  const bool ax0 = axv >= ayv && axv >= azv;
-  const bool ax1 = !ax0 && ayv >= azv;
-  const float major = ax0 ? x : (ax1 ? y : z);
-  const float m1 = ax0 ? y : (ax1 ? z : x);
-  const float m2 = ax0 ? z : (ax1 ? x : y);
-  const int face = 2 * (int)ax1 + 4 * (int)(!ax0 && !ax1) + (int)(major > 0.0f);
-  const float inv_major = 1.0f / clamp_min(fabsf(major), MIN_MAJOR);
-  const int q1 = clamp_int((int)((m1 * inv_major + 1.0f) * 2.0f), 0, 3);
-  const int q2 = clamp_int((int)((m2 * inv_major + 1.0f) * 2.0f), 0, 3);
-  return (face << 4) | (q1 << 2) | q2;
-}
-
 __global__ void __launch_bounds__(MP_COMPACT_BLOCK) key_kernel(const CompactArgs a) {
   // Every thread of the block takes part in the warp vote and the block's
   // record store below; a thread past the last lane loads the last lane's
@@ -137,15 +111,7 @@ __global__ void __launch_bounds__(MP_COMPACT_BLOCK) key_kernel(const CompactArgs
 #pragma unroll
   for (int c = 0; c < 3; ++c) lo[c] = a.lo[c], hi[c] = a.hi[c];
 
-  // _position_cells and _morton16: axis c's bit b goes to bit 3b + 2 - c.
-  int morton = 0;
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    const float scale = (1.0f / clamp_min(hi[c] - lo[c], MIN_EXTENT)) * 16.0f;
-    const int cell = (int)clamp((o[c] - lo[c]) * scale, 0.0f, 15.0f);
-#pragma unroll
-    for (int b = 0; b < 4; ++b) morton |= ((cell >> b) & 1) << (3 * b + (2 - c));
-  }
+  const int morton = morton_cell(o, lo, hi);
   const int dbin = a.fine_direction ? direction_bin(x, y, z)
                                     : (int)(x > 0.0f) * 4 + (int)(y > 0.0f) * 2 + (int)(z > 0.0f);
   if (in) a.key[i] = ((int)!active << 19) | (dbin << 12) | morton;

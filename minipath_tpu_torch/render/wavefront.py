@@ -15,7 +15,10 @@ bounce-shading kernel on a card (:func:`_shade_kernel`, ``render/shade.py``)
 and plain PyTorch elsewhere (:func:`_shade_plain`, the kernel's reference);
 the two agree bit for bit on the card. The compaction likewise is two
 kernels around one ``torch.sort`` on a card (:func:`_compact_kernel`,
-``render/compact.py``) and plain PyTorch elsewhere (:func:`_compact_plain`).
+``render/compact.py``) and plain PyTorch elsewhere (:func:`_compact_plain`),
+and so is a NEE bounce's shadow batch, from the shading kernel's query to the
+light it adds (:func:`_shadow_light_kernel`, ``render/shadow.py``, and
+:func:`_shadow_light_plain`).
 
 Random numbers come from an explicit ``torch.Generator`` in place of
 ``jax.random`` keys. In Sobol mode (``sobol=True``) every camera, BSDF and
@@ -45,6 +48,7 @@ import torch
 from minipath_tpu_torch.camera import CameraSampler
 from minipath_tpu_torch.geometry.ray import Rays
 from minipath_tpu_torch.parallel import frame_shards, gather
+from minipath_tpu_torch.render import shadow as shadow_passes
 from minipath_tpu_torch.render.compact import key_pass, permute_pass
 from minipath_tpu_torch.render.frame import gen_rays9_blocks, rays9_to_rays, unpack_frame
 from minipath_tpu_torch.render.kernels import KernelHits, KernelScene, PTHits, PTScene, _live_count, trace_packets_pt
@@ -394,17 +398,27 @@ def make_pt_shadow_tracer(scene: PTScene | QPTScene, *, stack_size: int, packet_
     :class:`QPTScene`). Returns
     ``(shadow, scene)``; ``shadow(scene, origin, segment, live_rays=None) ->
     (N,) bool`` is True where something blocks ``origin -> origin +
-    segment``."""
+    segment``.
+
+    ``shadow.packed(scene, rays9, live_packets=None) -> (B * P,) int32``
+    traces segments already in the kernel's ``(B, 9, P)`` layout (origin,
+    segment, inverse segment; ``P`` is ``shadow.packet_size``) and returns
+    the trace's triangle, ``>= 0`` where blocked: the entry of the shadow
+    batch's kernels, which pack the rows themselves."""
+
+    def packed(state: PTScene | QPTScene, r9, live_packets=None):
+        ph = _trace_pt_any(
+            state, r9, stack_size=stack_size, t_max=_SHADOW_T_MAX, live_packets=live_packets, anyhit=True
+        )
+        return ph.tri.reshape(-1)
 
     def shadow(state: PTScene | QPTScene, origin, segment, live_rays=None):
         N = origin.shape[0]
         inv = torch.where(segment == 0.0, torch.full_like(segment, torch.inf), 1.0 / segment)
-        r9, live_packets, Np = _pack_rays9(packet_size, live_rays, origin, segment, inv)
-        ph = _trace_pt_any(
-            state, r9, stack_size=stack_size, t_max=_SHADOW_T_MAX, live_packets=live_packets, anyhit=True
-        )
-        return ph.tri.reshape(Np)[:N] >= 0
+        r9, live_packets, _ = _pack_rays9(packet_size, live_rays, origin, segment, inv)
+        return packed(state, r9, live_packets)[:N] >= 0
 
+    shadow.packed, shadow.packet_size = packed, packet_size
     return shadow, scene
 
 
@@ -675,6 +689,91 @@ class _ShadowQuery(NamedTuple):
     wi: torch.Tensor  # (N, 3) unit direction to the light point
     light: torch.Tensor  # (N,) the sampled light's index
     contrib: torch.Tensor  # (N, 3) MIS-weighted radiance where unblocked
+
+
+def _shadow_light(tracer_state, query: _ShadowQuery, radiance, shadow_tracer, shadow_sort: str):
+    """A NEE bounce's shadow batch: the segments of ``query`` sorted by
+    :func:`shadow_sort_key`, traced by ``shadow_tracer``, and ``radiance``
+    with each unblocked candidate's ``contrib`` added. Returns the radiance.
+
+    The call decides the route: on a card, in the ``"pos"`` order, with a
+    tracer that takes packed rows (``shadow_tracer.packed``, the lean
+    kernels'), the kernels of ``csrc/shadow.cu``
+    (:func:`_shadow_light_kernel`); elsewhere plain PyTorch
+    (:func:`_shadow_light_plain`, their reference). The two trace the same
+    packets and return the same radiance bit for bit."""
+    if (radiance.device.type == "cuda" and shadow_sort == "pos"
+            and getattr(shadow_tracer, "packed", None) is not None):
+        return _shadow_light_kernel(tracer_state, query, radiance, shadow_tracer)
+    return _shadow_light_plain(tracer_state, query, radiance, shadow_tracer, shadow_sort)
+
+
+def _shadow_light_plain(tracer_state, query: _ShadowQuery, radiance, shadow_tracer, shadow_sort: str):
+    """:func:`_shadow_light` in plain PyTorch: :func:`_shadow_batch`, the
+    tracer, the scatter of its answers back to the lanes, and the masked
+    add."""
+    with span("pt.shadow_trace"):
+        # The batch's sort, gathers and scatter back, around the any-hit
+        # trace.
+        with span("pt.shadow_batch"):
+            o_s, s_s, n_cand, order = _shadow_batch(
+                query.cand, query.origin, query.segment, query.wi, query.light, shadow_sort
+            )
+        count("pt.shadow_rays", n_cand)
+        occ_s = shadow_tracer(tracer_state, o_s, s_s, n_cand)
+        with span("pt.shadow_batch"):
+            occluded = torch.empty_like(occ_s)
+            occluded[order] = occ_s
+        if recording():
+            count("pt.shadow_occluded", (query.cand & occluded).sum(dtype=torch.int32))
+    with span("pt.shade"):
+        # The light that reached the vertex, added last, as the estimator
+        # sums it.
+        lit = (query.cand & ~occluded)[:, None]
+        return radiance + torch.where(lit, query.contrib, 0.0)
+
+
+def _shadow_light_kernel(tracer_state, query: _ShadowQuery, radiance, shadow_tracer):
+    """:func:`_shadow_light_plain` in the ``"pos"`` order on the query's
+    card: the box, key and pack passes of ``csrc/shadow.cu`` around the plain
+    version's ``torch.sort`` of the same key (so the same permutation, ties
+    included), K2's any-hit over the packed rows of the live packets, and the
+    resolve pass, which adds the unblocked light into ``radiance`` in place
+    (a contiguous copy where its rows are strided). The candidate, live
+    packet and blocked counts stay on the device."""
+    N = query.cand.shape[0]
+    dev = radiance.device
+    P = shadow_tracer.packet_size
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    radiance, s_radiance = _rows(radiance)
+    # The candidates, the live packets, the blocked candidates, and the box
+    # pass's finished blocks.
+    counts = torch.zeros(4, dtype=torch.int32, device=dev)
+    fields = dict(
+        n=N, cand=query.cand.contiguous(), origin=query.origin.contiguous(), segment=query.segment.contiguous(),
+        wi=query.wi.contiguous(), contrib=query.contrib.contiguous(), counts=counts, packet=P,
+    )
+    with span("pt.shadow_trace"):
+        with span("pt.shadow_batch"):
+            box, key = empty(6), empty(N, dtype=torch.int32)
+            shadow_passes.box_pass(dev, **fields, partial=empty(shadow_passes.BOX_ROWS, 8),
+                                   partial_rows=shadow_passes.BOX_ROWS, box=box)
+            shadow_passes.key_pass(dev, **fields, box=box, key=key)
+            order = torch.sort(key).indices
+            rays = empty(-(-N // P), 9, P)
+            shadow_passes.pack_pass(dev, **fields, order=order, rays=rays)
+        count("pt.shadow_rays", counts[0])
+        tri = shadow_tracer.packed(tracer_state, rays, counts[1:2])
+        with span("pt.shadow_batch"):
+            shadow_passes.resolve_pass(dev, **fields, order=order, tri=tri, radiance=radiance,
+                                       s_radiance=s_radiance)
+        if recording():
+            count("pt.shadow_occluded", counts[2])
+            count("pt.shadow_kernel_lanes", N)
+    return radiance
 
 
 def _shade_plain(state: _PathState, kh: KernelHits, materials: MaterialTable, env: Environment, lights, generator,
@@ -1025,25 +1124,9 @@ def _pt_trace(
                 shadow_rr=shadow_rr, rr_start=rr_start, rr_floor=rr_floor, strata=strata, live=live,
             )
         if query is not None:
-            with span("pt.shadow_trace"):
-                # The batch's sort, gathers and scatter back, around the
-                # any-hit trace.
-                with span("pt.shadow_batch"):
-                    o_s, s_s, n_cand, order = _shadow_batch(
-                        query.cand, query.origin, query.segment, query.wi, query.light, shadow_sort
-                    )
-                count("pt.shadow_rays", n_cand)
-                occ_s = shadow_tracer(tracer_state, o_s, s_s, n_cand)
-                with span("pt.shadow_batch"):
-                    occluded = torch.empty_like(occ_s)
-                    occluded[order] = occ_s
-                if recording():
-                    count("pt.shadow_occluded", (query.cand & occluded).sum(dtype=torch.int32))
-            with span("pt.shade"):
-                # The light that reached the vertex, added last, as the
-                # estimator sums it.
-                lit = (query.cand & ~occluded)[:, None]
-                state = state._replace(radiance=state.radiance + torch.where(lit, query.contrib, 0.0))
+            state = state._replace(
+                radiance=_shadow_light(tracer_state, query, state.radiance, shadow_tracer, shadow_sort)
+            )
 
     # `pixel` is a permutation of the slots, so the sum is exact.
     rad = torch.zeros((N, 3), dtype=torch.float32, device=dev).index_add_(0, state.pixel.long(), state.radiance)

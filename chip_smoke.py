@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (``minipath_tpu_torch``) on one NVIDIA GPU.
 
-Run from the root of a checkout: ``python3 chip_smoke.py``. Thirty-one phases,
+Run from the root of a checkout: ``python3 chip_smoke.py``. Thirty-five phases,
 each printing its lines as it finishes; any failure raises and the script
 exits non-zero. There is no CPU path: without a CUDA device it fails at once.
 
@@ -289,6 +289,18 @@ Phase 34 runs after phase 33:
     report; each batch's candidates' share, each route's time (CUDA
     events), K2 any-hit's, the sort's share, each pass's time against its
     bound by bytes (``shadow_bytes``); each cell's frame of 8 chunks.
+
+Phase 35 runs after phase 30:
+
+35. The ``pt-q16-600k-1080p64-nee1`` cell's path: the big atrium with its
+    benchmark materials, built as the CLI builds it under ``--layout q16``
+    (natively, leaves of up to 56), whose ``pt_scene`` is a ``QPTScene``
+    with no f32 arrays on the card; one warm 1920x1080 @ 64 spp frame in
+    8-spp chunks (5 bounces, NEE at the first vertex, the sky) with K3's
+    launches counted from zero (40 closest-hit, 8 any-hit, no other
+    traversal), then the same seed over the f32 ``PTScene`` of the same tree
+    (K2): the two means within 1%, both frames' seconds and peak memory,
+    and each layout's bytes on the card.
 
 Phase 31 runs after phase 3:
 
@@ -2439,6 +2451,70 @@ def phase_q16_cell(device, smi) -> dict:
     return launches
 
 
+def phase_q16_pt_cell(device, smi) -> dict:
+    """Phase 35, the ``pt-q16-600k-1080p64-nee1`` cell's path on its own
+    tree: a warm frame over the tree's ``QPTScene`` (K3 lean) against the
+    same seed over the f32 ``PTScene`` of the same tree (K2); returns the
+    quantized frame's traversal launches."""
+    from minipath_tpu_torch.render import kernels_q
+    from minipath_tpu_torch.scene.procedural import atrium_materials, make_atrium
+    from minipath_tpu_torch.scene.triangle_bvh import TriangleBvh
+
+    mesh = make_atrium(BIG_TRIANGLES)
+    ids, dicts = atrium_materials(mesh)
+    t0 = time.perf_counter()
+    bvh = TriangleBvh.build(mesh, materials=ids, use_native=True, leaf_max=56, layout="q16")
+    built = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(device)
+    q_parts = pt_parts(bvh, dicts, device)
+    q = q_parts[0]
+    if not isinstance(q, kernels_q.QPTScene) or bvh._device_arrays:
+        raise AssertionError(f"layout 'q16': pt_scene is a {type(q).__name__}, f32 arrays on the card on "
+                             f"{list(bvh._device_arrays)}")
+    q_bytes = sum(t.nbytes for t in (q.node_q, q.tri_q, q.node_frame, q.root_box, q.shade_flat))
+    held = torch.cuda.memory_allocated(device) - base
+    spp_packet = min(8, PT_SPP)
+
+    def frame(parts, seed):
+        torch.cuda.reset_peak_memory_stats(device)
+        img, seconds = render_pt(parts, device, PT_WIDTH, PT_HEIGHT, PT_SPP, 1, spp_packet, seed=seed)
+        return img, seconds, torch.cuda.max_memory_allocated(device) / 1e9
+
+    frame(q_parts, 70)
+    reset_launches()
+    img_q, sec_q, peak_q = frame(q_parts, 71)
+    launches = {k: v for k, v in kernel_launch_counts().items() if v}
+    want = {"K3 closest": 40, "K3 anyhit": 8}
+    if launches != want:
+        raise AssertionError(f"the cell's frame launched {launches}, not {want}")
+    # Off the card, so that the f32 frame's peak holds its own layout alone.
+    del q_parts, q
+    bvh._quantized_scenes.clear()
+    # The same tree under the default layout: the f32 PTScene (K2).
+    f_parts = pt_parts(TriangleBvh(bvh.build_result), dicts, device)
+    f32 = f_parts[0]
+    f_bytes = sum(t.nbytes for t in (f32.node_box, f32.node_links, f32.tri_data, f32.shade_flat))
+    frame(f_parts, 70)
+    img_f, sec_f, peak_f = frame(f_parts, 71)
+    del f_parts, f32
+    m_q, m_f = float(img_q[..., :3].mean()), float(img_f[..., :3].mean())
+    shift = (m_q - m_f) / m_f
+    paths = PT_WIDTH * PT_HEIGHT * PT_SPP
+    text = (f"the cell's tree ({bvh.statistics()['triangles']} triangles, built in {built:.1f}s), render_frame_pt "
+            f"{PT_WIDTH}x{PT_HEIGHT} @ {PT_SPP} spp in {spp_packet}-spp chunks, {PT_BOUNCES} bounces, NEE at depth "
+            f"1, on {smi} | QPTScene {q_bytes / 1e6:.2f} MB (with the materials and lights {held / 1e6:.2f} MB "
+            f"on the card), no f32 arrays: warm {sec_q:.3f} s = {paths / sec_q / 1e6:.2f} Mpaths/s, peak "
+            f"{peak_q:.3f} GB, launches {launches} | "
+            f"f32 PTScene {f_bytes / 1e6:.2f} MB, same seed: {sec_f:.3f} s = {paths / sec_f / 1e6:.2f} Mpaths/s, "
+            f"peak {peak_f:.3f} GB | q16 / f32 time {sec_q / sec_f:.4f} | image mean {m_q:.6f} / f32 {m_f:.6f} "
+            f"(shift {shift:+.3e})")
+    if abs(shift) > LAYOUT_MEAN_RTOL:
+        raise AssertionError(f"the quantized cell frame's mean is off the f32 frame's: {text}")
+    log("35 q16 pt cell", text)
+    return launches
+
+
 def phase_q_pt(big, pt_bvh, dicts, device, smi, f32_mean):
     """The path tracer over the quantized layout: bench.py's bench_pt_big,
     then phase 7's NEE-capped frame over the path-traced atrium's QPTScene,
@@ -3878,12 +3954,14 @@ def main() -> int:
     del sets
     q_launches = phase_q_main_path(big, device, smi)
     q16_cell = phase_q16_cell(device, smi)
+    q16_pt_cell = phase_q16_pt_cell(device, smi)
     for mode, n in phase_q_pt(big, pt_bvh, dicts, device, smi, pt_mean).items():
         q_launches[mode] += n
     if args.profile is not None:
         profile_pt_frame(pt_parts(pt_bvh, dicts, device, quantized=True), device, args.profile, name="pt_q")
     by_path = phase_sharded(bvh, big, parts, ref64, pt_warm, device, smi)
     by_path["q16-600k-1080p64 render()"] = q16_cell
+    by_path["pt-q16-600k-1080p64-nee1 render_frame_pt()"] = q16_pt_cell
     by_path["pt-tworooms-1080p64 render_frame_pt()"] = tworooms_launches
     by_path["adaptive pt"] = phase_adaptive(parts, pt_mean, device, smi)
     by_path["two-level pt"] = phase_twolevel(pt_bvh, parts, ref64, pt_warm, device, smi)

@@ -64,6 +64,7 @@ import torch
 from minipath_tpu_torch.geometry.ray import Rays
 from minipath_tpu_torch.scene.bvh import links as L
 from minipath_tpu_torch.scene.bvh.build import BvhArrays
+from minipath_tpu_torch.utils.profiling import count, span
 
 _NULL = L.NULL_LINK
 _SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "traverse.cu"
@@ -214,7 +215,16 @@ def build_shade_flat(bvh: BvhArrays) -> torch.Tensor:
     narrow range cannot flush a small cross product to zero. Material ids
     are checked first (:func:`check_material_ids`), and a uv component that
     f16 cannot hold finitely raises ``ValueError`` instead of being stored
-    as inf."""
+    as inf. While tracing is on (``utils/profiling.py``), the build is the
+    span ``scene.shade_table`` and the table's bytes the counter
+    ``scene.shade_bytes``."""
+    with span("scene.shade_table"):
+        table = _shade_flat(bvh)
+    count("scene.shade_bytes", table.nbytes)
+    return table
+
+
+def _shade_flat(bvh: BvhArrays) -> torch.Tensor:
     check_material_ids(bvh.tri_material)
     M = bvh.tri_packets.shape[0]
     v0 = bvh.tri_packets[:, :, 0, :]

@@ -111,7 +111,7 @@ class _RenderState:
         # Frame mode (no tile callbacks): tiles are placed into this device
         # frame and the host fetches ONE image at the end.
         self.frame_dev: torch.Tensor | None = None
-        self.frame_fetch = None  # callable fetching frame_dev into .image
+        self.frame_fetch = None  # callable fetching frame_dev into .image; None once it is there whole
 
 
 class RenderProgress:
@@ -153,7 +153,7 @@ class RenderProgress:
         with span("render.image", request=self._request):
             fetch = self._state.frame_fetch
             if fetch is not None:
-                fetch()  # frame mode: pull the device buffer down first
+                fetch()  # frame mode, still rendering or failed: pull the device buffer down first
             with self._state.image_lock:
                 return self._state.image.copy()
 
@@ -335,10 +335,8 @@ def render(
             # One pad row and column, never fetched (place_tiles).
             state.frame_dev = torch.zeros((height + 1, width + 1, 4), dtype=torch.uint8, device=device)
             def fetch_frame():
-                with state.timers.phase("fetch"):
-                    full = state.frame_dev[:height, :width].cpu().numpy()
-                with state.image_lock:
-                    state.image[:, :] = full
+                with state.timers.phase("fetch"), state.image_lock:
+                    torch.from_numpy(state.image).copy_(state.frame_dev[:height, :width])
 
             state.frame_fetch = fetch_frame
 
@@ -365,6 +363,7 @@ def render(
                             write_batch(batch, tiles_u8)
                     if frame_mode:
                         fetch_frame()
+                        state.frame_fetch = None  # the whole frame is on the host: image() copies it
             except Exception as e:  # re-raised by RenderProgress.wait()
                 state.error = e
             finally:

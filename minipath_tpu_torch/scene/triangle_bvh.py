@@ -20,7 +20,9 @@ does against its VMEM budget. The choice is made from the array shapes,
 before either layout is built, and an error in the chosen layout raises
 instead of falling back: a ``"q16"`` tree built with spatial splits, or with
 material ids above 65535, raises ``ValueError``. ``quantized_scene`` and
-``quantized_pt_scene`` build the quantized layout whatever the choice.
+``quantized_pt_scene`` build the quantized layout whatever the choice, from
+the host arrays: a quantized scene holds no f32 copy of the tree on its
+device.
 """
 
 from __future__ import annotations
@@ -40,6 +42,10 @@ SCENE_BUDGET_BYTES: int | None = None
 # The layouts a caller may ask for (TriangleBvh.layout): the f32 one unless
 # it exceeds the budget, or the 16-bit quantized one.
 LAYOUTS = ("auto", "q16")
+
+# The fields of BvhArrays that the shading table's build reads
+# (render/kernels.py::build_shade_flat).
+_SHADE_FIELDS = ("tri_packets", "tri_vidx", "tri_flat", "tri_material", "vert_normal", "vert_uv")
 
 
 def _checked_layout(layout: str) -> str:
@@ -158,12 +164,13 @@ class TriangleBvh:
         """Lean path-tracing layout on ``device`` (cached): the f32
         ``PTScene`` (``render/kernels.py::prepare_scene_pt``), or the
         :meth:`quantized_pt_scene` where ``layout`` asks for it, as in
-        :meth:`kernel_scene`. Material ids are checked before either is
-        built."""
+        :meth:`kernel_scene`. Material ids are checked on the host before
+        either is built, so that nothing reaches ``device`` before the
+        layout is chosen."""
         from minipath_tpu_torch.render.kernels import check_material_ids, prepare_scene_pt
 
         device = torch.device(device)
-        check_material_ids(self.arrays(device).tri_material)
+        check_material_ids(torch.as_tensor(self.host_arrays.tri_material))
         if self._quantized(device, pt=True):
             return self.quantized_pt_scene(device)
         if device not in self._pt_scenes:
@@ -191,14 +198,21 @@ class TriangleBvh:
     def quantized_pt_scene(self, device):
         """The quantized lean path-tracing layout (``QPTScene``) on
         ``device``: :meth:`quantized_scene`'s rows plus the f16 shading
-        table, which is built, and its material ids checked, first."""
+        table, which is built, and its material ids checked, first. The
+        table is built on ``device`` from the fields it reads alone,
+        uploaded from the host arrays and dropped after it: the f32 arrays
+        (:meth:`arrays`) stay off the device."""
         from minipath_tpu_torch.render.kernels import build_shade_flat
         from minipath_tpu_torch.render.kernels_q import QPTScene
 
         device = torch.device(device)
         key = (device, "pt")
         if key not in self._quantized_scenes:
-            shade_flat = build_shade_flat(self.arrays(device))
+            host = self.host_arrays
+            fields = {name: torch.from_numpy(np.array(getattr(host, name), copy=True)).to(device)
+                      if name in _SHADE_FIELDS else None for name in BvhArrays._fields}
+            shade_flat = build_shade_flat(BvhArrays(**fields))
+            del fields  # off the device before the quantized rows go up
             self._quantized_scenes[key] = QPTScene(**self.quantized_scene(device)._asdict(), shade_flat=shade_flat)
         return self._quantized_scenes[key]
 

@@ -10,6 +10,8 @@ with the reference GUI look (``screen_block.rs:41-81``).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 
 from minipath_tpu_torch.geometry.aabb import AABB
@@ -69,20 +71,12 @@ class ScreenBlock(AABB):
         if self.is_empty():
             return []
         rng = rng if rng is not None else np.random.default_rng()
-        center = self.center().astype(np.float64)
-
-        tiles = [
-            ScreenBlock((x0, y0), (x1, y1))
-            for (y0, y1) in divide_range(int(self.min[1]), int(self.max[1]), tile_size)
-            for (x0, x1) in divide_range(int(self.min[0]), int(self.max[0]), tile_size)
-        ]
-
-        randomness_scale = float(np.linalg.norm(center)) * 0.1
-        keys = []
-        for tile in tiles:
-            jitter = rng.exponential(randomness_scale) if randomness_scale > 0 else 0.0
-            keys.append(float(np.linalg.norm(center - tile.center())) + jitter)
-        order = np.argsort(keys, kind="stable")
+        corners = (int(self.min[0]), int(self.min[1]), int(self.max[0]), int(self.max[1]))
+        ranges, distances, randomness_scale = _tile_grid(*corners, tile_size)
+        tiles = [ScreenBlock((x0, y0), (x1, y1)) for (x0, y0, x1, y1) in ranges]
+        # One draw a tile, in tile order: the same draws as one call each.
+        jitter = rng.exponential(randomness_scale, len(tiles)) if randomness_scale > 0 else 0.0
+        order = np.argsort(distances + jitter, kind="stable")
         return [tiles[i] for i in order]
 
 
@@ -94,3 +88,22 @@ def divide_range(start: int, end: int, tile_size: int):
     for i in range(count):
         lo = start + i * tile_size
         yield (lo, min(end, lo + tile_size))
+
+
+@functools.lru_cache(maxsize=64)
+def _tile_grid(x0: int, y0: int, x1: int, y1: int, tile_size: int):
+    """The tiles' corners in row-major order, each tile's center distance
+    to the block's center and the jitter's scale: everything of
+    ``tile_ordering`` but the draws, kept for the next frame of the same
+    size (the per-tile norms take milliseconds of a 1080p frame's host time)."""
+    center = ScreenBlock((x0, y0), (x1, y1)).center().astype(np.float64)
+    ranges = tuple(
+        (tx0, ty0, tx1, ty1)
+        for (ty0, ty1) in divide_range(y0, y1, tile_size)
+        for (tx0, tx1) in divide_range(x0, x1, tile_size)
+    )
+    distances = np.array(
+        [float(np.linalg.norm(center - ScreenBlock((a, b), (c, d)).center())) for (a, b, c, d) in ranges], np.float64
+    )
+    distances.flags.writeable = False
+    return ranges, distances, float(np.linalg.norm(center)) * 0.1

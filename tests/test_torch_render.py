@@ -29,7 +29,7 @@ from minipath_tpu_torch.render.kernels import prepare_scene
 from minipath_tpu_torch.scene import procedural
 from minipath_tpu_torch.scene.primitives import Sphere
 from minipath_tpu_torch.scene.bvh.build import from_numpy
-from minipath_tpu_torch.screen_block import ScreenBlock
+from minipath_tpu_torch.screen_block import ScreenBlock, divide_range
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -467,3 +467,84 @@ def test_frame_mode_keeps_its_image_at_packet_multiples(bvh, monkeypatch, tile_s
     tiles = ScreenBlock.with_size((0, 0), (96, 96)).tile_ordering(tile_size, rng=np.random.default_rng(PLACEMENT_SEED))
     assert len(batches) == 1 and batches[0].shape[0] == len(tiles)
     assert np.array_equal(got, _parent_placement(tiles, batches[0], 96, 96))
+
+
+def _plain_tile_ordering(block, tile_size, rng):
+    """``ScreenBlock.tile_ordering`` as one loop: each tile's center
+    distance and its own draw, one after the other (``screen_block.rs:41-81``)."""
+    center = block.center().astype(np.float64)
+    tiles = [
+        ScreenBlock((x0, y0), (x1, y1))
+        for (y0, y1) in divide_range(int(block.min[1]), int(block.max[1]), tile_size)
+        for (x0, x1) in divide_range(int(block.min[0]), int(block.max[0]), tile_size)
+    ]
+    scale = float(np.linalg.norm(center)) * 0.1
+    keys = []
+    for tile in tiles:
+        jitter = rng.exponential(scale) if scale > 0 else 0.0
+        keys.append(float(np.linalg.norm(center - tile.center())) + jitter)
+    return [tiles[i] for i in np.argsort(keys, kind="stable")]
+
+
+@pytest.mark.parametrize(
+    "origin,size,tile",
+    [((0, 0), (1920, 1080), 64), ((3, 5), (37, 51), 8), ((10, 20), (640, 480), 7), ((0, 0), (1, 1), 4)],
+)
+def test_tile_ordering_keeps_its_order_and_draws(origin, size, tile):
+    """The grid and its distances, kept between calls, give the order and
+    consume the draws that the per-tile loop does, seed by seed; each call's
+    tiles are its own, so changing one leaves the next call's as they were."""
+    block = ScreenBlock.with_size(origin, size)
+    for seed in range(6):
+        got_rng, want_rng = np.random.default_rng(seed), np.random.default_rng(seed)
+        got = block.tile_ordering(tile, rng=got_rng)
+        want = _plain_tile_ordering(block, tile, want_rng)
+        assert [(t.min.tolist(), t.max.tolist()) for t in got] == [(t.min.tolist(), t.max.tolist()) for t in want]
+        assert got_rng.random() == want_rng.random()
+    first = block.tile_ordering(tile, rng=np.random.default_rng(0))
+    first[0].extend_point(np.array([10**6, 10**6]))
+    again = block.tile_ordering(tile, rng=np.random.default_rng(0))
+    assert again[0] is not first[0] and again[0].max.tolist() != [10**6, 10**6]
+
+
+def test_frame_mode_fetches_the_finished_frame_once(bvh):
+    """The render thread pulls the finished frame down into the host image;
+    ``image()`` then copies it and fetches nothing, however often it is
+    called, and the image is tile mode's."""
+    settings = RenderSettings(tile_size=16, sample_count=4, resolution=(48, 48))
+    progress = render(Scene(bvh), _camera(Camera), settings, device="cpu", seed=PLACEMENT_SEED)
+    progress.wait()
+    first, second = progress.image(), progress.image()
+    assert progress.timings().stats("fetch").count == 1
+    assert first is not second and np.array_equal(first, second)
+    assert np.array_equal(first, _render_image(bvh, 16, 48, callback=lambda tile, snapshot: None))
+
+
+def test_a_failed_frame_mode_render_still_shows_its_placed_tiles(bvh, monkeypatch):
+    """A render thread that fails after its first dispatch never fetched
+    its frame: ``wait()`` raises, and ``image()`` fetches the tiles that were
+    placed, as a render still running would show them."""
+    monkeypatch.setattr(machinery, "MAX_RAYS_PER_DISPATCH", 2 * 16 * 16 * 4)  # two tiles a dispatch
+    sound = _render_image(bvh, 16, 48)
+    real = machinery.integrator.render_tile_batch_bvh
+    calls = []
+
+    def failing(*args, **kw):
+        calls.append(1)
+        if len(calls) > 1:
+            raise RuntimeError("second dispatch")
+        return real(*args, **kw)
+
+    monkeypatch.setattr(machinery.integrator, "render_tile_batch_bvh", failing)
+    settings = RenderSettings(tile_size=16, sample_count=4, resolution=(48, 48))
+    progress = render(Scene(bvh), _camera(Camera), settings, device="cpu", seed=PLACEMENT_SEED)
+    with pytest.raises(RuntimeError):
+        progress.wait()
+    assert progress.timings().stats("fetch").count == 0
+    image = progress.image()
+    assert progress.timings().stats("fetch").count == 1
+    tiles = ScreenBlock.with_size((0, 0), (48, 48)).tile_ordering(16, rng=np.random.default_rng(PLACEMENT_SEED))
+    for k, t in enumerate(tiles):
+        x0, y0, x1, y1 = int(t.min[0]), int(t.min[1]), int(t.max[0]), int(t.max[1])
+        want = sound[y0:y1, x0:x1] if k < 2 else np.zeros_like(sound[y0:y1, x0:x1])
+        assert np.array_equal(image[y0:y1, x0:x1], want), k
